@@ -1,0 +1,94 @@
+"""Weight bridge from the JAX package's flax trees to the port's modules.
+
+`params_from_jax(tree)` maps a flax variables tree ({"params": ...,
+"batch_stats": ...} of numpy arrays, nested dicts or flat "a/b/c" keys) to
+a flat state dict of the port:
+
+  - SuperPoint `VGGBlock_i/Conv_0/kernel` (HWIO) -> `blocks.i.conv.weight`
+    (OIHW), its bias -> `blocks.i.conv.bias`;
+  - `VGGBlock_i/BatchNorm_0/{scale,bias}` and the `batch_stats`
+    `{mean,var}` -> `blocks.i.bn_{scale,bias,mean,var}`;
+  - LightGlue leaves keep their names and their stacked layout: dense
+    weights stay (L, in, out), which is the row-major (K, N) operand the
+    CUDA kernels read, so one layer is a contiguous slice;
+  - a component prefix (`extractor/`, `matcher/`) becomes `extractor.` /
+    `matcher.`, the key layout of the two-view pipeline's state dict;
+  - f16 leaves are upcast to f32.
+
+`load_hermetic(path)` reads the committed flat npz artifact
+(counterpart of gluefactory_tpu/models/matchers/lightglue_pretrained.py:20-67).
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .models.base_model import resolve_device
+
+HERMETIC = Path(__file__).resolve().parent.parent / "weights" / "hermetic" / "sp_open_lg.npz"
+
+_VGG = re.compile(r"VGGBlock_(\d+)/(Conv_0|BatchNorm_0)/(\w+)$")
+_VGG_NAMES = {
+    ("Conv_0", "kernel"): "conv.weight",
+    ("Conv_0", "bias"): "conv.bias",
+    ("BatchNorm_0", "scale"): "bn_scale",
+    ("BatchNorm_0", "bias"): "bn_bias",
+    ("BatchNorm_0", "mean"): "bn_mean",
+    ("BatchNorm_0", "var"): "bn_var",
+}
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def port_key(path: str) -> str:
+    """Port state-dict key of one flax leaf path ("params/matcher/x", ...)."""
+    parts = path.split("/")
+    if parts[0] in ("params", "batch_stats"):
+        parts = parts[1:]
+    prefix = ""
+    if parts[0] in ("extractor", "matcher"):
+        prefix, parts = parts[0] + ".", parts[1:]
+    rest = "/".join(parts)
+    m = _VGG.match(rest)
+    if m:
+        return f"{prefix}blocks.{m.group(1)}.{_VGG_NAMES[(m.group(2), m.group(3))]}"
+    return prefix + rest
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> dict:
+    """Flat port state dict (fp32 CPU tensors) of a flax variables tree."""
+    out = {}
+    for path, leaf in _flatten(tree).items():
+        arr = np.asarray(leaf)
+        if arr.dtype == np.float16:
+            arr = arr.astype(np.float32)
+        if path.endswith("Conv_0/kernel"):
+            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        out[port_key(path)] = torch.from_numpy(np.array(arr, order="C"))
+    return out
+
+
+def load_hermetic(path: str | Path = HERMETIC, device: Any = "cuda") -> dict:
+    """The committed SuperPoint-open + LightGlue weights as a two-view
+    pipeline state dict on `device`."""
+    device = resolve_device(device)
+    with np.load(str(path)) as flat:
+        tree = {k: flat[k] for k in flat.files}
+    return {k: v.to(device) for k, v in params_from_jax(tree).items()}
+
+
+__all__ = ["HERMETIC", "params_from_jax", "port_key", "load_hermetic"]

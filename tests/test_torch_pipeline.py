@@ -1,0 +1,85 @@
+"""The port's whole slice (SuperPoint-open -> full-depth LightGlue -> match
+filtering) with the committed hermetic weights, against the JAX
+two_view_pipeline on the CPU in float32; plus the port's package rules."""
+
+import ast
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.ndimage import gaussian_filter
+
+from gluefactory_tpu.models import get_model as jax_model
+from gluefactory_tpu.models.matchers.lightglue_pretrained import load_npz_params
+from gluefactory_tpu_torch.models import get_model
+from gluefactory_tpu_torch.weights import HERMETIC, load_hermetic
+
+ROOT = Path(__file__).resolve().parent.parent
+CONF = {
+    "extractor": {"name": "superpoint_open", "max_num_keypoints": 256, "dtype": "float32"},
+    "matcher": {"name": "lightglue", "filter_threshold": 0.1},
+}
+
+
+def _pair(seed, h=240, w=320, dy=13, dx=21):
+    """A smooth random image and the same scene shifted by (dx, dy) pixels."""
+    rng = np.random.RandomState(seed)
+    big = gaussian_filter(rng.rand(h + dy, w + dx), 2.0)
+    big = ((big - big.min()) / (big.max() - big.min())).astype(np.float32)
+    return big[None, :h, :w, None], big[None, dy:, dx:, None]
+
+
+def test_pipeline_matches_jax_with_hermetic_weights():
+    i0, i1 = _pair(0)
+    size = np.asarray([[320.0, 240.0]], np.float32)
+    jdata = {v: {"image": jnp.asarray(i), "image_size": jnp.asarray(size)}
+             for v, i in (("view0", i0), ("view1", i1))}
+    jp = jax_model("two_view_pipeline").from_conf(CONF)
+    # the npz holds the whole variables tree: no init needed
+    variables = jax.tree.map(lambda a: a.astype(jnp.float32), load_npz_params(HERMETIC))
+    ref = jax.tree.map(np.asarray, jax.jit(jp.apply)(variables, jdata))
+
+    pipe = get_model("two_view_pipeline")(CONF, device="cpu")
+    pipe.load_state_dict(load_hermetic(device="cpu"))
+    tdata = {v: {"image": torch.from_numpy(i), "image_size": torch.from_numpy(size)}
+             for v, i in (("view0", i0), ("view1", i1))}
+    out = {k: v.numpy() for k, v in pipe(tdata).items()}
+
+    assert (out["matches0"] == ref["matches0"]).mean() >= 0.99
+    assert (out["matches1"] == ref["matches1"]).mean() >= 0.99
+    for i in "01":
+        assert (out[f"matches{i}"][~out[f"keypoint_mask{i}"]] == -1).all()
+    assert (out["matches0"] >= 0).sum() > 20
+
+
+@pytest.mark.parametrize("make", [
+    lambda: get_model("two_view_pipeline")(CONF),
+    lambda: get_model("lightglue")(),
+    lambda: get_model("superpoint_open")(),
+    lambda: load_hermetic(),
+])
+def test_entry_points_default_to_cuda_and_raise_without_it(make, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    files = sorted((ROOT / "gluefactory_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "gluefactory_tpu"), (path, mod)
