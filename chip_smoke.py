@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SuperPoint-open + LightGlue on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--train-batch PAIRS]
 
-Phases, each fatal on failure:
+`--train-batch` (default 32) sets the pairs a training step takes in phases
+3 and 5. Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel of gluefactory_tpu_torch/csrc with nvcc (sm_90a);
   3. kernels: each kernel against its plain PyTorch version on the card at
@@ -13,7 +14,14 @@ Phases, each fatal on failure:
      synthetic pair warped by a known homography, 480x640 / 1024 keypoints
      at batch 8 (launch counts, finiteness, agreement with the port's plain
      path, pairs/s, batch-1 latency, match precision), then the MegaDepth
-     protocol shape 1200x1600 / 2048 keypoints at batch 4.
+     protocol shape 1200x1600 / 2048 keypoints at batch 4;
+  5. training: the trainer at the homography configuration (frozen
+     SuperPoint-open, 512 keypoints, LightGlue 9 x 256 in fp32, per-layer
+     checkpointing, deep supervision) on 480x640 synthetic pairs at batch
+     32: the first step against the plain path, 2 warm-up and 5 timed steps
+     (launch counts, finite losses, which parameters moved), the non-finite
+     veto, and one step of the matcher alone with 512 x 384 keypoints (the
+     two-array cross attention).
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -21,6 +29,7 @@ without the package beside it, it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import math
@@ -69,8 +78,9 @@ def bound(flops: float, nbytes: float, peak: float):
 
 def compare(out, ref, dtype_name: str, what: str) -> float:
     atol, rtol = TOL[dtype_name]
-    diff = (out.float() - ref.float()).abs()
-    bad = diff > atol + rtol * ref.float().abs()
+    out, ref = out.detach().float(), ref.detach().float()
+    diff = (out - ref).abs()
+    bad = diff > atol + rtol * ref.abs()
     if not torch_finite(out) or bool(bad.any()):
         fail(f"{what}: {int(bad.sum())} entries outside atol {atol} + rtol {rtol}, "
              f"max abs err {float(diff.max()):.4g}")
@@ -191,6 +201,183 @@ def check_assignment(b, m, n, seed):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bms, bound_by=by,
                 tol="atol %g + rtol %g, argmax >= 99.9%% equal" % TOL["float32"])
+
+
+# ------------------------------------------- phase 3: the training attention
+TRAIN_B, TRAIN_N, TRAIN_N1 = 32, 512, 384  # pairs a step, keypoints, the shorter set of K6a
+SRC_ATT = "gluefactory_tpu_torch/csrc/attention.cu"
+PAL_ATT = "gluefactory_tpu/ops/pallas_attention.py"
+
+
+def attn_inputs(gen, dtype, *lengths, sets):
+    """One (sets, n, D) tensor per length, and one ~80% valid mask per
+    distinct length."""
+    import torch
+
+    xs = [torch.randn(sets, n, D, generator=gen, device="cuda").to(dtype) for n in lengths]
+    masks = {n: torch.rand(sets, n, generator=gen, device="cuda") > 0.2 for n in set(lengths)}
+    return xs, masks
+
+
+def heads(x):
+    """(S, N, D) -> contiguous (S, H, N, Dh), the layout of the yardstick."""
+    s, n, _ = x.shape
+    return x.reshape(s, n, H, DH).transpose(1, 2).contiguous()
+
+
+def autograd_reference(fn, inputs, grads_out):
+    """Gradients of the plain forward `fn` by torch.autograd, in fp32."""
+    import torch
+
+    leaves = [t.detach().float().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, leaves, [g.float() for g in grads_out])
+
+
+def attention_bound(pairs, n_products, tensors_bytes):
+    """Bound of `n_products` N x N x 64 products per head over the valid
+    (query, key) pairs, fp32 rate (the training type)."""
+    return bound(2.0 * n_products * D * pairs, tensors_bytes, PEAK_FP32)
+
+
+def check_self_attention(seed):
+    """K5 and the self form of K7b at (64, 512, 256): fp32 (timed) and bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from gluefactory_tpu_torch.ops import attention as plain
+    from gluefactory_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s, n = 2 * TRAIN_B, TRAIN_N
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        (q, k, v, do), masks = attn_inputs(gen, dtype, n, n, n, n, sets=s)
+        mask = masks[n]
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fa.fused_attention_packed(*leaves, mask, mask, H)
+        grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
+        torch.cuda.synchronize()
+        ref = plain.self_attention_packed(q, k, v, mask, H)
+        err_f = compare(out, ref, name, f"K5 forward {name}")
+        if float(out.detach()[~mask].abs().max()) != 0.0:
+            fail(f"K5 {name}: an invalid query row is not exactly zero")
+        fn = lambda a, b, c: plain.self_attention_packed(a, b, c, mask, H)
+        err_b = max(compare(g, r, name, f"K7b self form d{w} {name}")
+                    for g, r, w in zip(grads, autograd_reference(fn, (q, k, v), (do,)), "qkv"))
+        log(f"[kernel] K5 / K7b self form {name}: forward max abs err {err_f:.3g}, "
+            f"gradients {err_b:.3g} (atol %g + rtol %g)" % TOL[name])
+        if dtype != torch.float32:
+            continue
+        ms_f = timed(lambda: fa.fused_attention_packed(q, k, v, mask, mask, H), 10)
+        # the backward alone: autograd calls the backward kernels on the saved forward
+        ms_b = timed(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 10)
+        plain_f = timed(lambda: plain.self_attention_packed(q, k, v, mask, H), 3, warmup=1)
+        plain_b = timed(lambda: plain.attention_backward(q, k, v, mask, mask, do, H, DH**-0.5),
+                        3, warmup=1)
+        lq, lk, lv = (heads(t).requires_grad_() for t in (q, k, v))
+        amask = mask[:, None, None, :]
+        lib_f = timed(lambda: F.scaled_dot_product_attention(lq.detach(), lk.detach(),
+                                                             lv.detach(), attn_mask=amask), 10)
+        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask)
+        ldo = heads(do)
+        lib_b = timed(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True), 10)
+        nv = mask.sum(1).double()
+        pairs = float((nv * nv).sum())
+        act = s * n * D * 4
+        bf, byf = attention_bound(pairs, 2, 4 * act + s * n + s * H * n * 4)
+        bb, byb = attention_bound(pairs, 5, 8 * act + s * n + s * H * n * 4)
+        tol = "atol %g + rtol %g" % TOL[name]
+        rows["K5"] = dict(max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, library_ms=lib_f,
+                          bound_ms=bf, bound_by=byf, tol=tol)
+        rows["K7b self"] = dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, library_ms=lib_b,
+                                bound_ms=bb, bound_by=byb, tol=tol)
+    return rows
+
+
+def check_cross_attention(form, seed):
+    """K6b (stacked, N = 512) or K6a (two arrays, 512 x 384) with the
+    gradients of the shared projection, fp32 (timed) and bf16; for the
+    stacked form also the cross form of K7b alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from gluefactory_tpu_torch.ops import attention as plain
+    from gluefactory_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, m = TRAIN_B, TRAIN_N
+    n = m if form == "stacked" else TRAIN_N1
+    tag = "K6b" if form == "stacked" else "K6a"
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        (qk0, v0, g0, qk1, v1, g1), masks = attn_inputs(gen, dtype, m, m, m, n, n, n, sets=b)
+        mask0 = masks[m]
+        mask1 = masks[n] if n != m else torch.rand(b, n, generator=gen, device="cuda") > 0.2
+        if form == "stacked":
+            args = (torch.cat([qk0, qk1]), torch.cat([v0, v1]))
+            mk = (torch.cat([mask0, mask1]),)
+            kern, ref_fn = fa.fused_cross_attention_stacked, plain.cross_attention_bidirectional_stacked
+        else:
+            args, mk = (qk0, qk1, v0, v1), (mask0, mask1)
+            kern, ref_fn = fa.fused_cross_attention_packed, plain.cross_attention_bidirectional_packed
+        leaves = [t.clone().requires_grad_() for t in args]
+        out = kern(*leaves, *mk, H)
+        grads = torch.autograd.grad(out, leaves, (g0, g1))
+        torch.cuda.synchronize()
+        ref = ref_fn(*args, *mk, H)
+        err_f = max(compare(o, r, name, f"{tag} forward m{i} {name}")
+                    for i, (o, r) in enumerate(zip(out, ref)))
+        fn = lambda *a: ref_fn(*a, *mk, H)
+        err_b = max(compare(g, r, name, f"{tag} gradient {i} {name}")
+                    for i, (g, r) in enumerate(zip(grads, autograd_reference(fn, args, (g0, g1)))))
+        log(f"[kernel] {tag} {name}: forward max abs err {err_f:.3g}, gradients (dqk, dv) "
+            f"{err_b:.3g} (atol %g + rtol %g)" % TOL[name])
+        if dtype != torch.float32:
+            continue
+        ms_f = timed(lambda: kern(*args, *mk, H), 10)
+        plain_f = timed(lambda: ref_fn(*args, *mk, H), 3, warmup=1)
+        # yardstick: the two directions as scaled_dot_product_attention calls
+        # (one call over the stacked sets when both have the same length)
+        h0, h1, hv0, hv1 = heads(qk0), heads(qk1), heads(v0), heads(v1)
+        a0, a1 = mask0[:, None, None, :], mask1[:, None, None, :]
+        if form == "stacked":
+            hq, hk, hv = torch.cat([h0, h1]), torch.cat([h1, h0]), torch.cat([hv1, hv0])
+            am = torch.cat([a1, a0])
+            lib_f = timed(lambda: F.scaled_dot_product_attention(hq, hk, hv, attn_mask=am), 10)
+        else:
+            lib_f = timed(lambda: (F.scaled_dot_product_attention(h0, h1, hv1, attn_mask=a1),
+                                   F.scaled_dot_product_attention(h1, h0, hv0, attn_mask=a0)), 10)
+        pairs = float((mask0.sum(1).double() * mask1.sum(1).double()).sum())
+        act0, act1 = b * m * D * 4, b * n * D * 4
+        # one similarity and two message products serve both directions
+        bf, byf = attention_bound(pairs, 3, 3 * (act0 + act1) + b * (m + n) * (1 + H * 4))
+        tol = "atol %g + rtol %g" % TOL[name]
+        rows[tag] = dict(max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, library_ms=lib_f,
+                         bound_ms=bf, bound_by=byf, tol=tol)
+        if form != "stacked":
+            continue
+        # K7b, cross form: one direction, queries of set 0 against keys of set 1
+        direction = lambda q, k, v: plain.masked_attention(q, k, v, mask0, mask1, H, DH**-0.5)
+        one = [t.clone().requires_grad_() for t in (qk0, qk1, v1)]
+        out01 = fa.fused_attention_packed(*one, mask0, mask1, H)
+        got = torch.autograd.grad(out01, one, g0, retain_graph=True)
+        err = max(compare(g, r, name, f"K7b cross form d{w}") for g, r, w in zip(
+            got, autograd_reference(direction, (qk0, qk1, v1), (g0,)), "qkv"))
+        ms_b = timed(lambda: torch.autograd.grad(out01, one, g0, retain_graph=True), 10)
+        plain_b = timed(lambda: plain.attention_backward(qk0, qk1, v1, mask0, mask1, g0, H,
+                                                         DH**-0.5), 3, warmup=1)
+        lq, lk, lv = (t.requires_grad_() for t in (h0, h1, hv1))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=a1)
+        ldo = heads(g0)
+        lib_b = timed(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True), 10)
+        bb, byb = attention_bound(pairs, 5, 8 * act0 + b * (m + n) + b * H * m * 4)
+        rows["K7b cross"] = dict(max_abs_err=err, ms=ms_b, plain_ms=plain_b, library_ms=lib_b,
+                                 bound_ms=bb, bound_by=byb, tol=tol)
+    return rows
 
 
 # ------------------------------------------------------------------ phase 4
@@ -351,8 +538,195 @@ def pairs_per_s(pipe, data, iters):
     return b * iters / (time.perf_counter() - t0)
 
 
+# ------------------------------------------------------------------ phase 5
+def training_batch(seed, b, h, w):
+    import torch
+
+    img0, img1, hs = synthetic_pair(seed, b, h, w)
+    size = torch.tensor([[float(w), float(h)]] * b, device="cuda")
+    return {"view0": {"image": img0, "image_size": size},
+            "view1": {"image": img1, "image_size": size}, "H_0to1": hs.float()}
+
+
+def reset_train_counts():
+    from gluefactory_tpu_torch.ops import fused_attention as fa
+
+    for fn in (fa.fused_attention_packed, fa.fused_cross_attention_stacked,
+               fa.fused_cross_attention_packed, fa.fused_attention_backward):
+        fn.launches = 0
+    fa.fused_attention_backward.cross_launches = 0
+
+
+def read_train_counts():
+    """Launches of K5, K6b, K6a, and of K7b in its self and cross form."""
+    from gluefactory_tpu_torch.ops import fused_attention as fa
+
+    bwd = fa.fused_attention_backward
+    return {"K5": fa.fused_attention_packed.launches,
+            "K6b": fa.fused_cross_attention_stacked.launches,
+            "K6a": fa.fused_cross_attention_packed.launches,
+            "K7b self": bwd.launches - bwd.cross_launches, "K7b cross": bwd.cross_launches}
+
+
+def run_training():
+    """Phase 5; returns the launches per training step of each attention kernel."""
+    import torch
+
+    from gluefactory_tpu_torch.train.step import TrainState, make_optimizer, make_train_step
+    from gluefactory_tpu_torch.train.trainer import Trainer, homography_train_conf
+    from gluefactory_tpu_torch.weights import load_hermetic
+
+    b, h, w, layers = TRAIN_B, 480, 640, 9
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    def make(flash, mark=None):
+        conf = homography_train_conf()
+        conf["model"]["matcher"]["flash"] = flash
+        trainer = Trainer(conf, device="cuda", mark=mark)
+        trainer.load_weights(load_hermetic(device="cuda"))
+        return trainer
+
+    trainer = make(True, mark)
+    mconf = trainer.model.matcher.conf
+    if (mconf.n_layers, mconf.descriptor_dim, mconf.num_heads, mconf.mp, mconf.checkpointed,
+            trainer.model.extractor.conf.max_num_keypoints) != (layers, D, H, False, True, TRAIN_N):
+        fail("the training configuration is not 9 x 256, 4 heads, fp32, checkpointed, 512 keypoints")
+    batches = [training_batch(10 + i, b, h, w) for i in range(3)]
+
+    # the first step's loss and two gradients against the plain path on the card
+    named = ("matcher.self_Wqkv_w", "matcher.assign_proj_w")
+
+    def loss_and_grads(tr):
+        params = dict(tr.model.named_parameters())
+        pred = tr.model(batches[0])
+        losses, _ = tr.model.loss(pred, batches[0])
+        total = losses["total"].mean()
+        grads = torch.autograd.grad(total, [params[k] for k in named])
+        return float(total.detach()), grads, float(losses["num_matchable"].mean())
+
+    total, grads, matchable = loss_and_grads(trainer)
+    ref_total, ref_grads, _ = loss_and_grads(make(False))
+    if not abs(total - ref_total) <= 1e-4 * abs(ref_total):
+        fail(f"training: first total {total} against the plain path's {ref_total} (rtol 1e-4)")
+    for key, g, r in zip(named, grads, ref_grads):
+        diff, top = float((g - r).abs().max()), float(r.abs().max())
+        if not (top > 0 and diff <= 1e-3 * top + 1e-7):
+            fail(f"training: gradient of {key} differs from the plain path's by {diff:.3g} "
+                 f"(max |g| {top:.3g}; tolerance 1e-3 max|g| + 1e-7)")
+        log(f"[train] first step: d total / d {key} equals the plain path's within "
+            f"{diff:.3g} (max |g| {top:.3g}; tolerance 1e-3 max|g| + 1e-7)")
+    log(f"[train] first step: total {total:.6f}, plain path {ref_total:.6f} (rtol 1e-4); "
+        f"ground-truth positives {matchable:.1f} of {TRAIN_N} keypoints "
+        f"({matchable / TRAIN_N:.3f})")
+
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    history = trainer.train(batches, steps=2)  # warm-up
+    starts = []
+
+    def feed(n):
+        for i in range(n):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            yield batches[i % len(batches)]
+
+    steps = 5
+    marks.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    t0 = time.perf_counter()
+    history += trainer.train(feed(steps), steps=steps)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = read_train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {"K5": 2 * layers, "K6b": 2 * layers, "K6a": 0, "K7b self": layers,
+                "K7b cross": 2 * layers}
+    log(f"[train] launches in {steps} steps: {counts}")
+    if counts != {k: v * steps for k, v in per_step.items()}:
+        fail(f"training: expected {per_step} launches a step (checkpointing runs each "
+             f"forward twice), got {counts} in {steps} steps")
+    for i, losses in enumerate(history):
+        if not all(math.isfinite(v) for v in losses.values()):
+            fail(f"training: non-finite loss at step {i}: {losses}")
+        if losses["skipped_nonfinite"] != 0:
+            fail(f"training: step {i} was skipped")
+    if trainer.state.step != 2 + steps or trainer.state.optimizer.count != 2 + steps:
+        fail("training: the step counters did not advance once a step")
+    phases = [[a.elapsed_time(z) for a, z in zip([starts[i]] + marks[3 * i:3 * i + 2],
+                                                 marks[3 * i:3 * i + 3])] for i in range(steps)]
+    fwd_ms, bwd_ms, opt_ms = (sum(p[j] for p in phases) / steps for j in range(3))
+    after = trainer.model.state_dict()
+    for key, old in before.items():
+        same = torch.equal(old, after[key])
+        if key.startswith("matcher.") and same:
+            fail(f"training: parameter {key} did not change")
+        if key.startswith("extractor.") and not same:
+            fail(f"training: frozen extractor tensor {key} changed")
+    with torch.no_grad():
+        views = [trainer.model.extractor(batches[0][v]) for v in ("view0", "view1")]
+    feats = {f"{k}{i}": t for i, view in enumerate(views) for k, t in view.items()}
+    ext_ms = timed(lambda: [trainer.model.extractor(batches[0][v]) for v in ("view0", "view1")], 3)
+    gt_ms = timed(lambda: trainer.model.ground_truth({**batches[0], **feats}), 3)
+    log(f"[train] {step_ms:.2f} ms/step, {b * 1e3 / step_ms:.2f} pairs/s trained at "
+        f"{h}x{w} / {TRAIN_N} keypoints / batch {b}, fp32, {layers} layers checkpointed; "
+        f"forward {fwd_ms:.2f} ms (of it extractor {ext_ms:.2f}, ground truth {gt_ms:.2f}), "
+        f"backward {bwd_ms:.2f} ms, veto + optimizer {opt_ms:.2f} ms; "
+        f"peak memory {peak / 2**20:.0f} MiB; losses total "
+        + " ".join(f"{x['total']:.4f}" for x in history))
+
+    # the veto: NaN descriptors (a NaN image) must leave everything as it was
+    opt = trainer.state.optimizer
+    before = [v.clone() for v in trainer.model.state_dict().values()] + \
+        [t.clone() for t in opt.mu + opt.nu]
+    poisoned = {**batches[1], "view0": {**batches[1]["view0"],
+                                        "image": torch.full_like(batches[1]["view0"]["image"],
+                                                                 float("nan"))}}
+    out = trainer.train([poisoned], steps=1)[0]
+    after = list(trainer.model.state_dict().values()) + opt.mu + opt.nu
+    if out["skipped_nonfinite"] != 1 or opt.count != 2 + steps or trainer.state.step != 3 + steps:
+        fail(f"training: the poisoned batch was not vetoed: {out}, count {opt.count}")
+    if not all(torch.equal(a, z) for a, z in zip(before, after)):
+        fail("training: the vetoed step changed a parameter or an Adam moment")
+    log("[train] veto: a NaN batch reports skipped_nonfinite = 1 and leaves parameters, "
+        "Adam moments and Adam's count bit-identical")
+
+    # m != n: the matcher alone on 512 x 384 keypoints takes the two-array path
+    matcher = trainer.model.matcher
+    data = {k: (t[:, :TRAIN_N1] if k.endswith("1") else t) for k, t in feats.items()}
+    data = {**batches[0], **data}
+    data.update(trainer.model.ground_truth(data))
+    params = dict(matcher.named_parameters())
+    state = TrainState(0, params, make_optimizer(trainer.conf.train, params))
+    reset_train_counts()
+    state, losses = make_train_step(matcher)(state, data)
+    torch.cuda.synchronize()
+    counts2 = read_train_counts()
+    expect = {"K5": 4 * layers, "K6b": 0, "K6a": 2 * layers, "K7b self": 2 * layers,
+              "K7b cross": 2 * layers}
+    log(f"[train] m != n step ({TRAIN_N} x {TRAIN_N1}): launches {counts2}, "
+        f"total {float(losses['total']):.4f}")
+    if counts2 != expect:
+        fail(f"training, m != n: expected {expect} launches, got {counts2}")
+    if not math.isfinite(float(losses["total"])) or float(losses["skipped_nonfinite"]) != 0:
+        fail(f"training, m != n: {losses}")
+    per_step["K6a"] = counts2["K6a"]
+    return per_step
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
+    global TRAIN_B
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--train-batch", type=int, default=TRAIN_B,
+                        help="pairs a training step takes (default %(default)s)")
+    TRAIN_B = parser.parse_args().train_batch
     t_start = time.perf_counter()
     try:
         import torch
@@ -407,6 +781,19 @@ def main() -> int:
         kernels.append(dict(
             name=f"{tag} fused_log_assignment B={b} M=N={n} f32", route="cuda", source=src_asg,
             replaces="gluefactory_tpu/ops/pallas_assignment.py:200,225", **r))
+    att = {**check_self_attention(20), **check_cross_attention("stacked", 21),
+           **check_cross_attention("packed", 22)}
+    s2, n5, n6 = 2 * TRAIN_B, TRAIN_N, TRAIN_N1
+    att_rows = [
+        ("K5", f"K5 fused_attention_packed ({s2}, {n5}, 256) f32", "383"),
+        ("K6b", f"K6b fused_cross_attention_stacked ({s2}, {n5}, 256) f32", "744"),
+        ("K6a", f"K6a fused_cross_attention_packed B={TRAIN_B} M={n5} N={n6} f32", "691"),
+        ("K7b self", f"K7b attention backward, self form ({s2}, {n5}, 256) f32", "222"),
+        ("K7b cross", f"K7b attention backward, cross form B={TRAIN_B} {n5} x {n5} f32", "222"),
+    ]
+    for key, name, line in att_rows:
+        kernels.append(dict(name=name, key=key, route="cuda", source=SRC_ATT,
+                            replaces=f"{PAL_ATT}:{line}", **att[key]))
     for k in kernels:
         log(f"[kernel] {k['name']}: matches its plain version within {k['tol']} "
             f"(max abs err {k['max_abs_err']:.3g})")
@@ -439,6 +826,18 @@ def main() -> int:
     md_pps = pairs_per_s(pipe_md, data_md, iters=3)
     log(f"[megadepth b4] {1000.0 / md_pps:.2f} ms/pair ({md_pps:.2f} pairs/s); "
         f"precision@3px {precision(out_md, hs_md):.4f}")
+    del pipe, data, out, ref, pipe_md, data_md, out_md
+    torch.cuda.empty_cache()
+
+    # 5. training
+    per_step = run_training()
+    for k in kernels:
+        if "key" in k:
+            k["launches"] = per_step[k["key"]]
+        if k.get("launches", 0) < 1:
+            fail(f"{k['name']}: no launch on the main path")
+    step_ms = sum(k["ms"] * k["launches"] for k in kernels if k.get("key", "K6a") != "K6a")
+    log(f"[train] attention kernels per step (kernel_ms x launches, m == n): {step_ms:.2f} ms")
 
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"

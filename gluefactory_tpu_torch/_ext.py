@@ -35,6 +35,14 @@ SIGNATURES = {
         "lg_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
         "lg_ffn_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
+    "attention": {
+        "at_attn_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        "at_cross_fwd_stacked": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        "at_cross_fwd_pair": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _F, _I, _P],
+        "at_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _F, _I, _P],
+    },
     "log_assignment": {
         "la_lse_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "la_assign_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

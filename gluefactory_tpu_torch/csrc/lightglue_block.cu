@@ -33,7 +33,7 @@
 // intermediates q/k/v/ctx make one round trip through device memory (L2 at
 // these sizes). Moving the products to wgmma and keeping K/V in shared
 // memory across a cluster is the work of later versions.
-#include "common.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
 
@@ -110,9 +110,9 @@ __global__ void __launch_bounds__(kThreads) proj_kernel(
 }
 
 // ----------------------------------------------------------- attention
-// grid (ceil(N / 64), H, S); shared: Qs, Ks, Vs, Ps (64 x kPad each),
-// red (64 x 17), kvalid (64).
-constexpr int kAttnSmem = (4 * kTile * kPad + kTile * 17 + kTile) * sizeof(float);
+// grid (ceil(N / 64), H, S); the tile itself is gf::attn_fwd_tile
+// (attention_fwd.cuh), shared with the training attention kernels.
+constexpr int kAttnSmem = gf::kAttnFwdSmem;
 
 template <class T>
 __global__ void __launch_bounds__(kThreads) attn_kernel(
@@ -120,113 +120,14 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(
     const unsigned char* __restrict__ mask, T* __restrict__ out,
     int S, int N, int D, int kv_shift, float scale) {
   GF_DYN_SMEM(float, smem);
-  float(*Qs)[kPad] = reinterpret_cast<float(*)[kPad]>(smem);          // [d][r]
-  float(*Ks)[kPad] = reinterpret_cast<float(*)[kPad]>(smem + kTile * kPad);  // [d][c]
-  float(*Vs)[kPad] = reinterpret_cast<float(*)[kPad]>(smem + 2 * kTile * kPad);  // [j][c]
-  float(*Ps)[kPad] = reinterpret_cast<float(*)[kPad]>(smem + 3 * kTile * kPad);  // [j][r]
-  float(*red)[17] = reinterpret_cast<float(*)[17]>(smem + 4 * kTile * kPad);
-  float* kvalid = smem + 4 * kTile * kPad + kTile * 17;
-
-  const int s = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * kTile;
+  const int s = blockIdx.z, h = blockIdx.y;
   const int kvs = (s + kv_shift) % S;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t qbase = (size_t)s * N * D + h * kDh;
   const size_t kbase = (size_t)kvs * N * D + h * kDh;
-
-  for (int e = 0; e < kTile * kDh / kThreads; ++e) {
-    int idx = tid + e * kThreads;
-    int r = idx / kDh, d = idx % kDh;
-    int gi = i0 + r;
-    Qs[d][r] = gi < N ? gf::to_f(q[qbase + (size_t)gi * D + d]) : 0.f;
-  }
-  bool qv[4];
-  for (int i = 0; i < 4; ++i) {
-    int gi = i0 + ty * 4 + i;
-    qv[i] = gi < N && (mask == nullptr || mask[(size_t)s * N + gi]);
-  }
-
-  const float kNone = -1e30f;
-  float m[4], l[4], o[4][4] = {};
-  for (int i = 0; i < 4; ++i) { m[i] = kNone; l[i] = 0.f; }
-
-  for (int j0 = 0; j0 < N; j0 += kTile) {
-    __syncthreads();
-    for (int e = 0; e < kTile * kDh / kThreads; ++e) {
-      int idx = tid + e * kThreads;
-      int c = idx / kDh, d = idx % kDh;
-      int gj = j0 + c;
-      bool in = gj < N;
-      Ks[d][c] = in ? gf::to_f(k[kbase + (size_t)gj * D + d]) : 0.f;
-      Vs[c][d] = in ? gf::to_f(v[kbase + (size_t)gj * D + d]) : 0.f;
-    }
-    if (tid < kTile) {
-      int gj = j0 + tid;
-      kvalid[tid] = (gj < N && (mask == nullptr || mask[(size_t)kvs * N + gj])) ? 1.f : 0.f;
-    }
-    __syncthreads();
-
-    float sim[4][4] = {};
-#pragma unroll 8
-    for (int d = 0; d < kDh; ++d) {
-      float a[4], b[4];
-      for (int i = 0; i < 4; ++i) a[i] = Qs[d][ty * 4 + i];
-      for (int j = 0; j < 4; ++j) b[j] = Ks[d][tx * 4 + j];
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j) sim[i][j] = fmaf(a[i], b[j], sim[i][j]);
-    }
-    bool kv[4];
-    for (int j = 0; j < 4; ++j) kv[j] = kvalid[tx * 4 + j] > 0.f;
-    for (int i = 0; i < 4; ++i) {
-      float pm = kNone;
-      for (int j = 0; j < 4; ++j) {
-        sim[i][j] = kv[j] ? sim[i][j] * scale : kNone;
-        pm = fmaxf(pm, sim[i][j]);
-      }
-      red[ty * 4 + i][tx] = pm;
-    }
-    __syncthreads();
-    float mnew[4];
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-      for (int t = 0; t < 16; ++t) mx = fmaxf(mx, red[ty * 4 + i][t]);
-      mnew[i] = mx;
-    }
-    __syncthreads();
-    for (int i = 0; i < 4; ++i) {
-      float ps = 0.f;
-      for (int j = 0; j < 4; ++j) {
-        float p = kv[j] ? expf(sim[i][j] - mnew[i]) : 0.f;
-        Ps[tx * 4 + j][ty * 4 + i] = p;
-        ps += p;
-      }
-      red[ty * 4 + i][tx] = ps;
-    }
-    __syncthreads();
-    for (int i = 0; i < 4; ++i) {
-      float alpha = expf(m[i] - mnew[i]);
-      float ls = 0.f;
-      for (int t = 0; t < 16; ++t) ls += red[ty * 4 + i][t];
-      l[i] = l[i] * alpha + ls;
-      m[i] = mnew[i];
-      for (int j = 0; j < 4; ++j) o[i][j] *= alpha;
-    }
-#pragma unroll 8
-    for (int jj = 0; jj < kTile; ++jj) {
-      float a[4], b[4];
-      for (int i = 0; i < 4; ++i) a[i] = Ps[jj][ty * 4 + i];
-      for (int j = 0; j < 4; ++j) b[j] = Vs[jj][tx * 4 + j];
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(a[i], b[j], o[i][j]);
-    }
-  }
-
-  for (int i = 0; i < 4; ++i) {
-    int gi = i0 + ty * 4 + i;
-    if (gi >= N) continue;
-    float inv = (qv[i] && l[i] > 0.f) ? 1.f / l[i] : 0.f;
-    for (int j = 0; j < 4; ++j)
-      out[qbase + (size_t)gi * D + tx * 4 + j] = gf::from_f<T>(o[i][j] * inv);
-  }
+  gf::attn_fwd_tile<T>(q + qbase, k + kbase, v + kbase,
+                       mask == nullptr ? nullptr : mask + (size_t)s * N,
+                       mask == nullptr ? nullptr : mask + (size_t)kvs * N,
+                       out + qbase, nullptr, N, N, D, blockIdx.x * kTile, scale, smem);
 }
 
 // ------------------------------------------------------------ FFN tail

@@ -30,7 +30,8 @@ def resolve_device(device: Any = "cuda") -> torch.device:
 
 
 class BaseModel(nn.Module):
-    """Subclasses set `default_conf`, `required_data_keys` and `forward`."""
+    """Subclasses set `default_conf`, `required_data_keys`, `forward` and,
+    when they train, `loss`."""
 
     base_default_conf: ClassVar[dict] = {"name": None}
     default_conf: ClassVar[dict] = {}
@@ -50,6 +51,10 @@ class BaseModel(nn.Module):
         super().__init__()
         self.conf = Config(merge(self.merged_default_conf(), conf or {}))
         self.device = resolve_device(device)
+
+    def loss(self, pred: Mapping, data: Mapping):
+        """(losses, metrics) of a trainable model; others have none."""
+        raise NotImplementedError
 
     def check_required_keys(self, data: Mapping) -> None:
         for key in self.required_data_keys:

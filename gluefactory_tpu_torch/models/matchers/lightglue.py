@@ -1,20 +1,30 @@
-"""LightGlue matcher, full-depth inference (counterpart of
+"""LightGlue matcher, full-depth inference and training (counterpart of
 gluefactory_tpu/models/matchers/lightglue.py).
 
 Parameters keep the JAX package's names and stacked (L, in, out) layout,
 so a flax tree maps onto them leaf for leaf (weights.params_from_jax).
-Every layer runs through the block ops of ops/lightglue_block.py and the
-exit assignment through ops/log_assignment.py: their CUDA kernels on the
-card, their plain versions on the CPU.
 
-Both keypoint sets run stacked on the batch axis, (2B, N, D), as the JAX
-stacked path does for m == n. When m != n the shorter set is padded with
-masked tokens to the common length: masked tokens are excluded as keys and
-their rows are dropped afterwards, so the valid outputs are those of the
-unstacked path (lightglue.py:495-509).
+Inference (`is_training: False`) runs under `torch.no_grad()`: every layer
+goes through the block ops of ops/lightglue_block.py and the exit
+assignment through ops/log_assignment.py, their CUDA kernels on the card
+and their plain versions on the CPU. Both keypoint sets run stacked on the
+batch axis, (2B, N, D), as the JAX stacked path does for m == n. When
+m != n the shorter set is padded with masked tokens to the common length:
+masked tokens are excluded as keys and their rows are dropped afterwards,
+so the valid outputs are those of the unstacked path (lightglue.py:495-509).
 
-Adaptive depth/width and training are not ported yet (ROADMAP Queue 1
-items 6 and 8) and raise.
+Training (`is_training: True`) is differentiable and runs the unfused
+layers, as the JAX package does: dense projections, LayerNorm and GELU are
+torch calls, the attention goes through ops/fused_attention.py (packed self
+attention, bidirectional cross attention and their backward: CUDA kernels
+on the card, plain versions on the CPU; `flash: False` takes the plain
+versions on any device, as the JAX package's XLA path). m == n runs stacked
+(`_layer_stacked`), m != n as two sets (`_layer`). Per-layer descriptors
+are always collected for the deep-supervision `loss`; `checkpointed`
+recomputes each layer in the backward. The exit assignment is the plain
+differentiable one, as in the JAX package (the fused one is forward-only).
+
+Adaptive depth/width is not ported yet (ROADMAP Queue 1 item 6) and raises.
 """
 
 from __future__ import annotations
@@ -25,9 +35,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
+from ...ops.assignment import filter_matches, sigmoid_log_double_softmax
+from ...ops.attention import (
+    apply_rotary,
+    cross_attention_bidirectional_packed,
+    cross_attention_bidirectional_stacked,
+    self_attention_packed,
+)
+from ...ops.fused_attention import (
+    fused_attention_packed,
+    fused_cross_attention_packed,
+    fused_cross_attention_stacked,
+)
 from ...ops.lightglue_block import fused_cross_block, fused_self_block
 from ...ops.log_assignment import filter_matches_from_stats, fused_log_assignment
 from ..base_model import BaseModel
+from ..utils.losses import nll_loss
+from ..utils.metrics import matcher_metrics
 
 
 def normalize_keypoints(
@@ -56,12 +82,15 @@ class LightGlue(BaseModel):
         "n_layers": 9,
         "num_heads": 4,
         "mp": False,  # bf16 through the transformer stack
+        "flash": True,  # training attention through the kernels (False: plain versions)
         "depth_confidence": -1.0,
         "width_confidence": -1.0,
         "filter_threshold": 0.0,
+        "checkpointed": False,  # training: recompute each layer in the backward
         "collect_layers": True,
         "posenc": "conditional_fourier",
         "is_training": False,
+        "loss": {"gamma": 1.0, "fn": "nll", "nll_balancing": 0.5},
     }
     required_data_keys = ["keypoints0", "keypoints1", "descriptors0", "descriptors1"]
 
@@ -72,10 +101,10 @@ class LightGlue(BaseModel):
             raise NotImplementedError(
                 "adaptive depth/width inference is not ported yet (ROADMAP Queue 1 item 6)"
             )
-        if conf.is_training:
-            raise NotImplementedError("LightGlue training is not ported yet (ROADMAP Queue 1 item 8)")
         if conf.add_scale_ori:
-            raise NotImplementedError("add_scale_ori is not ported yet")
+            raise NotImplementedError(
+                "add_scale_ori is not ported yet (ROADMAP Queue 1 item 9, with the "
+                "extractors that give scales and orientations)")
         d, n = conf.descriptor_dim, conf.n_layers
         dh = d // conf.num_heads
         gen = torch.Generator().manual_seed(0)  # random init before weights load
@@ -107,21 +136,25 @@ class LightGlue(BaseModel):
         shapes["conf_head_w"] = lambda: lecun(max(n - 1, 1), d, 1)
         shapes["conf_head_b"] = lambda: torch.zeros(max(n - 1, 1), 1)
         for name, make in shapes.items():
-            self.register_parameter(name, nn.Parameter(make(), requires_grad=False))
+            self.register_parameter(name, nn.Parameter(make()))
         self.to(self.device)
         self._cast_cache: dict = {}
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self._cast_cache = {}
-        return super()._load_from_state_dict(*args, **kwargs)
+        self._cast_stamp = None
 
     # ------------------------------------------------------------------ utils
-    def _layer(self, i: int, dtype: torch.dtype):
-        """Per-layer block weights in the activation dtype, contiguous
-        (cached: the parameters are fixed at inference)."""
+    def _drop_stale_casts(self):
+        """Empty the cache of cast weights if a parameter changed since it was
+        filled (an optimizer step or a load bumps its version counter)."""
+        stamp = tuple((p._version, p.data_ptr()) for p in self.parameters())
+        if stamp != self._cast_stamp:
+            self._cast_cache, self._cast_stamp = {}, stamp
+
+    def _block_weights(self, i: int, dtype: torch.dtype):
+        """Per-layer weights of the inference block kernels in the activation
+        dtype, contiguous (cached, see `_drop_stale_casts`)."""
         key = (i, dtype)
         if key not in self._cast_cache:
-            p = lambda name: getattr(self, name)[i].to(dtype).contiguous()
+            p = lambda name: getattr(self, name)[i].detach().to(dtype).contiguous()
             self_args = [p(f"self_{k}") for k in (
                 "Wqkv_w", "Wqkv_b", "out_w", "out_b", "ffn1_w", "ffn1_b",
                 "ln_scale", "ln_bias", "ffn2_w", "ffn2_b")]
@@ -144,8 +177,13 @@ class LightGlue(BaseModel):
         return cos, sin
 
     # ----------------------------------------------------------------- forward
-    @torch.no_grad()
     def forward(self, data: dict) -> dict:
+        if self.conf.is_training:
+            return self._forward(data)
+        with torch.no_grad():
+            return self._forward(data)
+
+    def _forward(self, data: dict) -> dict:
         self.check_required_keys(data)
         conf = self.conf
         kpts0, kpts1 = data["keypoints0"], data["keypoints1"]
@@ -169,25 +207,16 @@ class LightGlue(BaseModel):
         cos0, sin0 = self._posenc(kn0, m)
         cos1, sin1 = self._posenc(kn1, n)
 
-        desc0, desc1, all0, all1 = self._run_layers(
-            desc0, desc1, (cos0, sin0), (cos1, sin1), mask0, mask1
-        )
+        run = self._run_layers_train if conf.is_training else self._run_layers
+        desc0, desc1, all0, all1 = run(desc0, desc1, (cos0, sin0), (cos1, sin1), mask0, mask1)
 
-        # final assignment (fp32), fused with the match statistics
         i_exit = conf.n_layers - 1
-        d = conf.descriptor_dim
-        w, bproj = self.assign_proj_w[i_exit], self.assign_proj_b[i_exit]
-        mdesc0 = ((desc0.float() @ w + bproj) / d**0.25).contiguous()
-        mdesc1 = ((desc1.float() @ w + bproj) / d**0.25).contiguous()
-        wm, bm = self.assign_match_w[i_exit], self.assign_match_b[i_exit]
-        z0 = (desc0.float() @ wm + bm)[..., 0].contiguous()
-        z1 = (desc1.float() @ wm + bm)[..., 0].contiguous()
-        scores, rowmax, rowarg, colmax, colarg = fused_log_assignment(
-            mdesc0, mdesc1, z0, z1, mask0, mask1
-        )
-        m0, m1, mscores0, mscores1 = filter_matches_from_stats(
-            rowmax, rowarg, colmax, colarg, conf.filter_threshold
-        )
+        if conf.is_training:
+            scores = self._assignment(i_exit, desc0, desc1, mask0, mask1)
+            m0, m1, mscores0, mscores1 = filter_matches(scores, conf.filter_threshold)
+        else:
+            scores, m0, m1, mscores0, mscores1 = self._fused_assignment(
+                i_exit, desc0, desc1, mask0, mask1)
         full = lambda k: torch.full((b, k), float(conf.n_layers), device=kpts0.device)
         return {
             "matches0": m0,
@@ -201,6 +230,22 @@ class LightGlue(BaseModel):
             "prune1": full(n),
             "stop_layer": torch.tensor(i_exit, dtype=torch.int32),
         }
+
+    def _fused_assignment(self, i_exit, desc0, desc1, mask0, mask1):
+        """Exit assignment (fp32) fused with the match statistics: inference."""
+        conf = self.conf
+        d = conf.descriptor_dim
+        w, bproj = self.assign_proj_w[i_exit], self.assign_proj_b[i_exit]
+        mdesc0 = ((desc0.float() @ w + bproj) / d**0.25).contiguous()
+        mdesc1 = ((desc1.float() @ w + bproj) / d**0.25).contiguous()
+        wm, bm = self.assign_match_w[i_exit], self.assign_match_b[i_exit]
+        z0 = (desc0.float() @ wm + bm)[..., 0].contiguous()
+        z1 = (desc1.float() @ wm + bm)[..., 0].contiguous()
+        scores, rowmax, rowarg, colmax, colarg = fused_log_assignment(
+            mdesc0, mdesc1, z0, z1, mask0, mask1
+        )
+        return (scores, *filter_matches_from_stats(
+            rowmax, rowarg, colmax, colarg, conf.filter_threshold))
 
     def _run_layers(self, desc0, desc1, enc0, enc1, mask0, mask1):
         """Full depth over both sets stacked as (2B, N, D), N = max(m, n)."""
@@ -225,15 +270,184 @@ class LightGlue(BaseModel):
 
         nh = self.conf.num_heads
         collect = self.conf.collect_layers
+        self._drop_stale_casts()
         layers = []
         for i in range(self.conf.n_layers):
-            self_args, cross_args = self._layer(i, dt)
+            self_args, cross_args = self._block_weights(i, dt)
             desc = fused_self_block(desc, cos, sin, mask, *self_args, num_heads=nh, masked=masked)
             desc = fused_cross_block(desc, mask, *cross_args, num_heads=nh, masked=masked)
             if collect:
                 layers.append(desc)
         alls = torch.stack(layers) if collect else desc[None]
         return desc[:b, :m], desc[b:, :n], alls[:, :b, :m], alls[:, b:, :n]
+
+    # ------------------------------------------------- training: unfused layers
+    def _dense(self, x, name: str, i: int):
+        """x @ W[i] + b[i] with layer i of a stacked dense, in x's dtype."""
+        return x @ getattr(self, name + "_w")[i].to(x.dtype) + getattr(
+            self, name + "_b")[i].to(x.dtype)
+
+    def _ffn(self, x, message, i: int, blk: str):
+        """FFN([x, message]) with the first product split into two half-K
+        ones, fp32 LayerNorm (eps 1e-5) and exact GELU."""
+        d = x.shape[-1]
+        w1 = getattr(self, f"{blk}_ffn1_w")[i].to(x.dtype)
+        y = x @ w1[:d] + message @ w1[d:] + getattr(self, f"{blk}_ffn1_b")[i].to(x.dtype)
+        y = F.layer_norm(y.float(), (2 * d,), getattr(self, f"{blk}_ln_scale")[i],
+                         getattr(self, f"{blk}_ln_bias")[i], eps=1e-5).to(x.dtype)
+        return self._dense(F.gelu(y), f"{blk}_ffn2", i)
+
+    def _self_block(self, i: int, x, cos, sin, mask):
+        """cos/sin are the packed (S, N, D) tables in x's dtype."""
+        q, k, v = self._dense(x, "self_Wqkv", i).chunk(3, dim=-1)
+        q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
+        if self.conf.flash:
+            context = fused_attention_packed(q, k, v, mask, mask, self.conf.num_heads)
+        else:
+            context = self_attention_packed(q, k, v, mask, self.conf.num_heads)
+        message = self._dense(context, "self_out", i)
+        return x + self._ffn(x, message, i, "self")
+
+    def _cross_block(self, i: int, x0, x1, mask0, mask1):
+        attend = (fused_cross_attention_packed if self.conf.flash
+                  else cross_attention_bidirectional_packed)
+        m0, m1 = attend(
+            self._dense(x0, "cross_qk", i), self._dense(x1, "cross_qk", i),
+            self._dense(x0, "cross_v", i), self._dense(x1, "cross_v", i),
+            mask0, mask1, self.conf.num_heads)
+        x0 = x0 + self._ffn(x0, self._dense(m0, "cross_out", i), i, "cross")
+        x1 = x1 + self._ffn(x1, self._dense(m1, "cross_out", i), i, "cross")
+        return x0, x1
+
+    def _layer(self, i: int, desc0, desc1, enc0, enc1, mask0, mask1):
+        desc0 = self._self_block(i, desc0, *enc0, mask0)
+        desc1 = self._self_block(i, desc1, *enc1, mask1)
+        return self._cross_block(i, desc0, desc1, mask0, mask1)
+
+    def _layer_stacked(self, i: int, desc, cos, sin, mask):
+        """One layer over both sets stacked on the batch axis (2B, N, D): one
+        self and one cross attention call."""
+        desc = self._self_block(i, desc, cos, sin, mask)
+        attend = (fused_cross_attention_stacked if self.conf.flash
+                  else cross_attention_bidirectional_stacked)
+        m0, m1 = attend(
+            self._dense(desc, "cross_qk", i), self._dense(desc, "cross_v", i), mask,
+            self.conf.num_heads)
+        message = self._dense(torch.cat([m0, m1], dim=0), "cross_out", i)
+        return desc + self._ffn(desc, message, i, "cross")
+
+    def _run_layers_train(self, desc0, desc1, enc0, enc1, mask0, mask1):
+        """Full depth through the unfused layers, per-layer descriptors
+        collected; with `checkpointed` each layer is recomputed in the
+        backward instead of keeping its activations."""
+        b, m = desc0.shape[:2]
+        n = desc1.shape[1]
+        nh, dt = self.conf.num_heads, desc0.dtype
+        packed = lambda enc: tuple(t.repeat(1, 1, nh).to(dt) for t in enc)
+        enc0, enc1 = packed(enc0), packed(enc1)
+
+        def run(layer, *args):
+            if self.conf.checkpointed:
+                return checkpoint(layer, *args, use_reentrant=False)
+            return layer(*args)
+
+        if m == n:
+            desc = torch.cat([desc0, desc1], dim=0)
+            cos, sin = (torch.cat([e0, e1], dim=0) for e0, e1 in zip(enc0, enc1))
+            mask = None
+            if mask0 is not None or mask1 is not None:
+                ones = torch.ones((b, m), dtype=torch.bool, device=desc.device)
+                mask = torch.cat([ones if mask0 is None else mask0,
+                                  ones if mask1 is None else mask1], dim=0)
+            layers = []
+            for i in range(self.conf.n_layers):
+                desc = run(self._layer_stacked, i, desc, cos, sin, mask)
+                layers.append(desc)
+            alls = torch.stack(layers)
+            return desc[:b], desc[b:], alls[:, :b], alls[:, b:]
+
+        all0, all1 = [], []
+        for i in range(self.conf.n_layers):
+            desc0, desc1 = run(self._layer, i, desc0, desc1, enc0, enc1, mask0, mask1)
+            all0.append(desc0)
+            all1.append(desc1)
+        return desc0, desc1, torch.stack(all0), torch.stack(all1)
+
+    # ------------------------------------------------------- assignment, loss
+    def _assignment(self, i: int, desc0, desc1, mask0, mask1):
+        """Differentiable log assignment (B, M+1, N+1) at layer i, fp32."""
+        d = self.conf.descriptor_dim
+        desc0, desc1 = desc0.float(), desc1.float()
+        mdesc0 = self._dense(desc0, "assign_proj", i) / d**0.25
+        mdesc1 = self._dense(desc1, "assign_proj", i) / d**0.25
+        sim = torch.einsum("bmd,bnd->bmn", mdesc0, mdesc1)
+        z0 = self._dense(desc0, "assign_match", i)
+        z1 = self._dense(desc1, "assign_match", i)
+        return sigmoid_log_double_softmax(sim, z0, z1, mask0, mask1)
+
+    def _confidence_logits(self, i: int, desc):
+        """Token-confidence logits at layer i < n - 1; no gradient reaches the
+        descriptors."""
+        return self._dense(desc.detach().float(), "conf_head", i)[..., 0]
+
+    def _confidence(self, i: int, desc0, desc1):
+        return (torch.sigmoid(self._confidence_logits(i, desc0)),
+                torch.sigmoid(self._confidence_logits(i, desc1)))
+
+    def loss(self, pred: dict, data: dict):
+        """Deep-supervised NLL + confidence BCE over all layers: per-layer
+        assignments are recomputed from the stored per-layer descriptors; the
+        ground-truth weights of the final layer serve every layer. Returns
+        (losses, metrics), each a dict of (B,) tensors."""
+        conf = self.conf
+        n_layers = conf.n_layers
+        all0 = pred["ref_descriptors0"].transpose(0, 1)  # (L, B, M, D)
+        all1 = pred["ref_descriptors1"].transpose(0, 1)
+        mask0, mask1 = data.get("keypoint_mask0"), data.get("keypoint_mask1")
+        balancing = conf.loss.nll_balancing
+
+        la_final = self._assignment(n_layers - 1, all0[-1], all1[-1], mask0, mask1)
+        nll, gt_weights, loss_metrics = nll_loss(
+            {"log_assignment": la_final}, data, nll_balancing=balancing)
+        losses = {
+            "total": nll,
+            "last": nll.detach(),
+            **loss_metrics,
+            "row_norm": la_final.exp()[:, :-1].sum(2).mean(1),
+        }
+        final_m0 = la_final.detach()[:, :-1, :].argmax(-1)
+        final_m1 = la_final.detach()[:, :, :-1].argmax(-2)
+
+        total, sum_weights = nll, 1.0
+        confidence = torch.zeros_like(nll)
+        for i in range(n_layers - 1):
+            la_i = self._assignment(i, all0[i], all1[i], mask0, mask1)
+            nll_i, _, _ = nll_loss({"log_assignment": la_i}, data, weights=gt_weights,
+                                   nll_balancing=balancing)
+            w = conf.loss.gamma ** (n_layers - i - 1) if conf.loss.gamma > 0.0 else i + 1.0
+            total = total + nll_i * w
+            sum_weights += w
+            correct0 = (la_i.detach()[:, :-1, :].argmax(-1) == final_m0).float()
+            correct1 = (la_i.detach()[:, :, :-1].argmax(-2) == final_m1).float()
+            bce0 = _masked_bce(self._confidence_logits(i, all0[i]), correct0, mask0)
+            bce1 = _masked_bce(self._confidence_logits(i, all1[i]), correct1, mask1)
+            confidence = confidence + (bce0 + bce1) / 2.0 / (n_layers - 1)
+        total = total / sum_weights
+        losses["confidence"] = confidence
+        if conf.is_training:
+            total = total + confidence
+        losses["total"] = total
+        metrics = {} if conf.is_training else matcher_metrics(pred, data)
+        return losses, metrics
+
+
+def _masked_bce(logits, labels, mask):
+    """Binary cross entropy with logits, averaged over the valid tokens."""
+    per_tok = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
+    if mask is None:
+        return per_tok.mean(-1)
+    m = mask.to(per_tok.dtype)
+    return (per_tok * m).sum(-1) / m.sum(-1).clamp(min=1.0)
 
 
 __main_model__ = LightGlue

@@ -1,9 +1,15 @@
-"""Two-view sparse matching pipeline, inference (counterpart of
+"""Two-view sparse matching pipeline (counterpart of
 gluefactory_tpu/models/two_view_pipeline.py).
 
-extractor -> matcher. Filter, solver and ground-truth components are not
-ported yet and raise when configured. Match convention: matches0[i] is the
-index in image 1 of the match of keypoint i in image 0, or -1.
+extractor -> matcher -> ground_truth, each optional. The ground-truth
+component labels the extracted keypoints for `loss` (or already in the
+forward with `run_gt_in_forward`). Filter and solver components are not
+ported yet and raise when configured. The extractor is frozen: it runs in
+eval mode under `torch.no_grad()`, so no gradient reaches it, and a
+trainable one raises. The matcher decides itself whether it records
+gradients (`is_training`). Match convention: matches0[i] is the index in
+image 1 of the match of keypoint i in image 0, or -1 (-2 = ignored in the
+ground truth).
 """
 
 from __future__ import annotations
@@ -18,32 +24,44 @@ from ..utils.config import to_dict
 class TwoViewPipeline(BaseModel):
     default_conf = {
         "name": "two_view_pipeline",
-        "extractor": {"name": None},
+        "extractor": {"name": None, "trainable": False},
         "matcher": {"name": None},
         "filter": {"name": None},
         "solver": {"name": None},
         "ground_truth": {"name": None},
+        "run_gt_in_forward": False,
         # one extractor call on both views stacked along the batch axis;
         # "auto" stacks only at batch 1, True forces it, False disables
         "batch_extraction": "auto",
     }
     required_data_keys = ["view0", "view1"]
+    components = ["extractor", "matcher", "ground_truth"]
 
     def __init__(self, conf=None, device="cuda"):
         super().__init__(conf, device)
-        for k in ("filter", "solver", "ground_truth"):
+        for k in ("filter", "solver"):
             if self._has(k):
                 raise NotImplementedError(f"the {k} component is not ported yet (ROADMAP Queue 1)")
-        self.extractor = self.matcher = None
-        for k in ("extractor", "matcher"):
+        if self._has("extractor") and self.conf.extractor.get("trainable", False):
+            raise NotImplementedError("a trainable extractor is not ported yet (ROADMAP Queue 1)")
+        self.extractor = self.matcher = self.ground_truth = None
+        for k in self.components:
             if self._has(k):
                 sub = to_dict(self.conf[k])
                 setattr(self, k, get_model(sub["name"])(sub, device=self.device))
+
+    def train(self, mode: bool = True):
+        """The frozen extractor stays in eval mode."""
+        super().train(mode)
+        if self.extractor is not None:
+            self.extractor.eval()
+        return self
 
     def _has(self, k):
         sub = self.conf.get(k)
         return bool(sub and sub.get("name"))
 
+    @torch.no_grad()
     def extract_view(self, data, i: str):
         return {} if self.extractor is None else self.extractor(data[f"view{i}"])
 
@@ -56,6 +74,7 @@ class TwoViewPipeline(BaseModel):
             return False
         return True if be is True else img0.shape[0] == 1
 
+    @torch.no_grad()
     def _extract_batched(self, data):
         v0, v1 = data["view0"], data["view1"]
         b = v0["image"].shape[0]
@@ -68,7 +87,6 @@ class TwoViewPipeline(BaseModel):
         pred = self.extractor(stacked)
         return {k: v[:b] for k, v in pred.items()}, {k: v[b:] for k, v in pred.items()}
 
-    @torch.no_grad()
     def forward(self, data: dict) -> dict:
         self.check_required_keys(data)
         if self._can_batch_extract(data):
@@ -82,7 +100,27 @@ class TwoViewPipeline(BaseModel):
         }
         if self.matcher is not None:
             pred = {**pred, **self.matcher({**data, **pred})}
+        if self.ground_truth is not None and self.conf.run_gt_in_forward:
+            pred.update(self.ground_truth({**data, **pred}))
         return pred
+
+    def loss(self, pred: dict, data: dict):
+        """Sum of the components' losses; returns (losses, metrics), dicts of
+        (B,) tensors. Components without a loss are skipped."""
+        losses, metrics, total = {}, {}, 0
+        if self.ground_truth is not None and not self.conf.run_gt_in_forward:
+            pred = {**pred, **self.ground_truth({**data, **pred})}
+        for k in self.components:
+            if not self._has(k) or not self.conf[k].get("apply_loss", True):
+                continue
+            try:
+                losses_, metrics_ = getattr(self, k).loss(pred, {**pred, **data})
+            except NotImplementedError:
+                continue
+            losses = {**losses, **losses_}
+            metrics = {**metrics, **metrics_}
+            total = losses_["total"] + total
+        return {**losses, "total": total}, metrics
 
 
 __main_model__ = TwoViewPipeline

@@ -94,13 +94,14 @@ def filter_matches(scores: torch.Tensor, th: float) -> Tuple[torch.Tensor, ...]:
 
 
 def _first_max(x: torch.Tensor, dim: int):
-    """(max, first index of the max) along `dim`."""
+    """(max, first index of the max) along `dim`; a line of NaNs gives the
+    last index, so that the result always indexes the line."""
     mx = torch.amax(x, dim=dim, keepdim=True)
     n = x.shape[dim]
     shape = [1] * x.ndim
     shape[dim] = n
     ids = torch.arange(n, device=x.device).view(shape)
-    arg = torch.where(x >= mx, ids, torch.full_like(ids, n)).amin(dim=dim)
+    arg = torch.where(x >= mx, ids, torch.full_like(ids, n - 1)).amin(dim=dim)
     return mx.squeeze(dim), arg
 
 

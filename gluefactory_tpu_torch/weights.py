@@ -15,6 +15,10 @@ a flat state dict of the port:
     `matcher.`, the key layout of the two-view pipeline's state dict;
   - f16 leaves are upcast to f32.
 
+`params_to_jax(state_dict)` is the inverse: the nested flax variables tree
+(numpy arrays) of a port state dict, so that a trained checkpoint of the
+port can be handed to the JAX package.
+
 `load_hermetic(path)` reads the committed flat npz artifact
 (counterpart of gluefactory_tpu/models/matchers/lightglue_pretrained.py:20-67).
 """
@@ -82,6 +86,38 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict:
     return out
 
 
+_VGG_PORT = re.compile(r"blocks\.(\d+)\.(.+)$")
+_VGG_LEAVES = {v: k for k, v in _VGG_NAMES.items()}
+
+
+def params_to_jax(state_dict: Mapping[str, Any]) -> dict:
+    """Nested flax variables tree ({"params": ..., "batch_stats": ...}, fp32
+    numpy arrays) of a port state dict: the inverse of `params_from_jax`."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        arr = value.detach().cpu().float().numpy()
+        parts = []
+        if key.split(".")[0] in ("extractor", "matcher"):
+            comp, key = key.split(".", 1)
+            parts.append(comp)
+        collection = "params"
+        m = _VGG_PORT.match(key)
+        if m:
+            module, leaf = _VGG_LEAVES[m.group(2)]
+            if leaf in ("mean", "var"):
+                collection = "batch_stats"
+            if leaf == "kernel":
+                arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            parts += [f"VGGBlock_{m.group(1)}", module, leaf]
+        else:
+            parts.append(key)
+        node = tree.setdefault(collection, {})
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr.copy()
+    return tree
+
+
 def load_hermetic(path: str | Path = HERMETIC, device: Any = "cuda") -> dict:
     """The committed SuperPoint-open + LightGlue weights as a two-view
     pipeline state dict on `device`."""
@@ -91,4 +127,4 @@ def load_hermetic(path: str | Path = HERMETIC, device: Any = "cuda") -> dict:
     return {k: v.to(device) for k, v in params_from_jax(tree).items()}
 
 
-__all__ = ["HERMETIC", "params_from_jax", "port_key", "load_hermetic"]
+__all__ = ["HERMETIC", "params_from_jax", "params_to_jax", "port_key", "load_hermetic"]

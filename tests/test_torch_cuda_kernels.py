@@ -11,6 +11,8 @@ on a rounding boundary can land one ulp apart and carry on).
 import pytest
 import torch
 
+from gluefactory_tpu_torch.ops import attention as plain
+from gluefactory_tpu_torch.ops import fused_attention as fa
 from gluefactory_tpu_torch.ops import lightglue_block as lb
 from gluefactory_tpu_torch.ops import log_assignment as la
 
@@ -78,8 +80,67 @@ def test_log_assignment_matches_plain(gen, masked):
             torch.testing.assert_close(o, r, atol=1e-4, rtol=1e-5)
 
 
+def _mask(gen, *shape):
+    return torch.rand(*shape, generator=gen, device="cuda") > 0.3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_attention_packed_matches_plain(gen, dtype, masked):
+    """Forward against the plain version, gradients against the explicit
+    backward formula (and, in fp32, autograd of the plain forward)."""
+    s, nq, nk = 3, 200, 150
+    q, k, v, do = (_rn(gen, s, n, D, dtype=dtype) for n in (nq, nk, nk, nq))
+    mq, mk = (_mask(gen, s, nq), _mask(gen, s, nk)) if masked else (None, None)
+    if masked:
+        mk[1] = False
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fa.fused_attention_packed.launches, fa.fused_attention_backward.launches
+    out = fa.fused_attention_packed(*leaves, mq, mk)
+    out.backward(do)
+    assert (fa.fused_attention_packed.launches, fa.fused_attention_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(out, plain.masked_attention(q, k, v, mq, mk, 4, 0.125), dtype)
+    for leaf, ref in zip(leaves, plain.attention_backward(q, k, v, mq, mk, do, 4, 0.125)):
+        _close(leaf.grad, ref, dtype)
+    if dtype == torch.float32:
+        auto = [t.clone().requires_grad_() for t in (q, k, v)]
+        plain.masked_attention(*auto, mq, mk, 4, 0.125).backward(do)
+        for leaf, ref in zip(leaves, auto):
+            _close(leaf.grad, ref.grad, dtype)
+
+
+@pytest.mark.parametrize("form", ["stacked", "packed"])
+def test_cross_attention_matches_plain(gen, form):
+    """Both message sets and the gradients of the shared projection, fp32,
+    against autograd of the plain version."""
+    b, m, n = 2, 200, 200 if form == "stacked" else 136
+    if form == "stacked":
+        args = [_rn(gen, 2 * b, m, D) for _ in range(2)]
+        masks = (_mask(gen, 2 * b, m),)
+        kern, ref = fa.fused_cross_attention_stacked, plain.cross_attention_bidirectional_stacked
+    else:
+        args = [_rn(gen, b, k, D) for k in (m, n, m, n)]
+        masks = (_mask(gen, b, m), _mask(gen, b, n))
+        kern, ref = fa.fused_cross_attention_packed, plain.cross_attention_bidirectional_packed
+    g = (_rn(gen, b, m, D), _rn(gen, b, n, D))
+    a = [t.clone().requires_grad_() for t in args]
+    r = [t.clone().requires_grad_() for t in args]
+    before = fa.fused_attention_backward.launches
+    out, expect = kern(*a, *masks), ref(*r, *masks)
+    torch.autograd.backward(out, g)
+    torch.autograd.backward(expect, g)
+    assert fa.fused_attention_backward.launches == before + 2
+    for o, e in zip(out, expect):
+        _close(o, e, torch.float32)
+    for x, y in zip(a, r):
+        _close(x.grad, y.grad, torch.float32)
+
+
 def test_wrappers_check_their_inputs(gen):
     x = _rn(gen, 2, 64, D, dtype=torch.float16)
     w = _weights(gen, torch.float16, cross=True)
     with pytest.raises(TypeError):
         lb.fused_cross_block(x, None, *w, masked=False)
+    with pytest.raises(ValueError):  # heads of width 32
+        fa.fused_attention_packed(*(_rn(gen, 2, 64, 128) for _ in range(3)), num_heads=4)

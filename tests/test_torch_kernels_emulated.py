@@ -19,6 +19,8 @@ import pytest
 import torch
 
 from gluefactory_tpu_torch import _ext
+from gluefactory_tpu_torch.ops import attention as plain
+from gluefactory_tpu_torch.ops import fused_attention as fa
 from gluefactory_tpu_torch.ops import lightglue_block as lb
 from gluefactory_tpu_torch.ops import log_assignment as la
 
@@ -105,3 +107,61 @@ def test_log_assignment_kernels_match_plain(libs, masked):
             torch.testing.assert_close(o, r, atol=0, rtol=0)
         else:
             torch.testing.assert_close(o, r, atol=2e-5, rtol=1e-5)
+
+
+# ----------------------------------------------------- training attention
+AD, AH, SCALE = 128, 2, 0.125  # two heads of width 64
+
+
+def _attn_inputs(dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen).to(dtype)
+    mask = lambda *s: torch.rand(*s, generator=gen) > 0.3
+    return gen, rn, mask
+
+
+@pytest.mark.parametrize("dtype,masked", [(torch.float32, True), (torch.float32, False),
+                                          (torch.bfloat16, True)])
+def test_attention_forward_and_backward_kernels_match_plain(libs, dtype, masked):
+    """Separate query and key sets (the cross form of the backward), ragged
+    lengths, one set without a valid key."""
+    _, rn, mask = _attn_inputs(dtype, 20 + masked)
+    s, nq, nk = 2, 70, 90
+    q, k, v, do = rn(s, nq, AD), rn(s, nk, AD), rn(s, nk, AD), rn(s, nq, AD)
+    mq, mk = (mask(s, nq), mask(s, nk)) if masked else (None, None)
+    if masked:
+        mk[1] = False
+    lib = libs["attention"]
+    out, lse = fa.launch_attention_fwd(lib, None, q, k, v, mq, mk, AH, SCALE)
+    _close(out, plain.masked_attention(q, k, v, mq, mk, AH, SCALE), dtype)
+    if masked:
+        assert float(out[~mq].float().abs().max()) == 0.0
+        assert float(out[1].float().abs().max()) == 0.0
+    grads = fa.launch_attention_bwd(lib, None, q, k, v, out, lse, mq, mk, do, AH, SCALE)
+    for g, ref in zip(grads, plain.attention_backward(q, k, v, mq, mk, do, AH, SCALE)):
+        _close(g, ref, dtype)
+    if dtype == torch.float32:  # and against autograd of the plain forward
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        plain.masked_attention(*leaves, mq, mk, AH, SCALE).backward(do)
+        for g, leaf in zip(grads, leaves):
+            _close(g, leaf.grad, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_kernels_match_plain(libs, dtype):
+    _, rn, mask = _attn_inputs(dtype, 30)
+    lib = libs["attention"]
+    b, n = 2, 70
+    qk, v, m = rn(2 * b, n, AD), rn(2 * b, n, AD), mask(2 * b, n)
+    for mk in (m, None):
+        out, _ = fa.launch_cross_fwd_stacked(lib, None, qk, v, mk, AH, SCALE)
+        m0, m1 = plain.cross_attention_bidirectional_stacked(qk, v, mk, AH)
+        _close(out[:b], m0, dtype)
+        _close(out[b:], m1, dtype)
+    mm, nn = 70, 100  # M != N, on either side of a tile edge
+    qk0, v0, qk1, v1 = rn(b, mm, AD), rn(b, mm, AD), rn(b, nn, AD), rn(b, nn, AD)
+    mask0, mask1 = mask(b, mm), mask(b, nn)
+    o0, o1, _, _ = fa.launch_cross_fwd_pair(lib, None, qk0, qk1, v0, v1, mask0, mask1, AH, SCALE)
+    m0, m1 = plain.cross_attention_bidirectional_packed(qk0, qk1, v0, v1, mask0, mask1, AH)
+    _close(o0, m0, dtype)
+    _close(o1, m1, dtype)

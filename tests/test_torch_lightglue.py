@@ -99,7 +99,7 @@ def test_collect_layers_and_outputs():
 
 
 @pytest.mark.parametrize("conf", [{"depth_confidence": 0.95}, {"width_confidence": 0.99},
-                                  {"is_training": True}])
+                                  {"add_scale_ori": True}])
 def test_unported_modes_raise(conf):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         get_model("lightglue")(conf, device="cpu")

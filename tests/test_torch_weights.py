@@ -9,7 +9,8 @@ import torch
 
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu_torch.models import get_model
-from gluefactory_tpu_torch.weights import HERMETIC, load_hermetic, params_from_jax, port_key
+from gluefactory_tpu_torch.weights import (
+    HERMETIC, load_hermetic, params_from_jax, params_to_jax, port_key)
 
 CONF = {
     "extractor": {"name": "superpoint_open", "max_num_keypoints": 32, "dtype": "float32"},
@@ -48,7 +49,23 @@ def test_params_from_fresh_jax_pipeline():
     np.testing.assert_array_equal(
         pipe.extractor.blocks[4].conv.weight.numpy(), kernel.transpose(3, 2, 0, 1))
     np.testing.assert_array_equal(
-        pipe.matcher.cross_ffn1_w.numpy(),
+        pipe.matcher.cross_ffn1_w.detach().numpy(),
         np.asarray(variables["params"]["matcher"]["cross_ffn1_w"]))
     mean = np.asarray(variables["batch_stats"]["extractor"]["VGGBlock_11"]["BatchNorm_0"]["mean"])
     np.testing.assert_array_equal(pipe.extractor.blocks[11].bn_mean.numpy(), mean)
+
+
+def test_params_to_jax_inverts_params_from_jax():
+    """Every one of the 103 leaves comes back under its flax path, in the
+    flax layout, bit for bit."""
+    tree = params_to_jax(load_hermetic(device="cpu"))
+    assert set(tree) == {"params", "batch_stats"}
+    with np.load(str(HERMETIC)) as flat:
+        for key in flat.files:
+            node = tree
+            for part in key.split("/"):
+                node = node[part]
+            np.testing.assert_array_equal(node, flat[key].astype(np.float32), err_msg=key)
+    back = params_from_jax(tree)
+    for key, value in load_hermetic(device="cpu").items():
+        assert torch.equal(back[key], value), key
