@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of SuperPoint-open + LightGlue on one GPU.
+"""Drive the PyTorch/CUDA port of SuperPoint-open + LightGlue (full depth,
+adaptive, training) and SuperGlue on one GPU.
 
     python3 chip_smoke.py [--train-batch PAIRS]
 
@@ -21,7 +22,16 @@
      32: the first step against the plain path, 2 warm-up and 5 timed steps
      (launch counts, finite losses, which parameters moved), the non-finite
      veto, and one step of the matcher alone with 512 x 384 keypoints (the
-     two-array cross attention).
+     two-array cross attention);
+  6. adaptive serving: SuperPoint-open with the fused block 0 feeding
+     LightGlue with early exit and width pruning, 480x640 / 1024 keypoints
+     at batch 8 and batch 1 on easy pairs (launch counts against the exit
+     layer, agreement with the port's plain path in fp32 and in bf16,
+     pairs/s and latency against full depth on the same pairs, the cost of
+     the per-layer host read);
+  7. SuperGlue (9 layer pairs x 256, 50 Sinkhorn iterations, seeded
+     weights) on SuperPoint-open's features at batch 8: 36 per-head
+     attention launches a forward, agreement with the plain path.
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -361,7 +371,7 @@ def check_cross_attention(form, seed):
         if form != "stacked":
             continue
         # K7b, cross form: one direction, queries of set 0 against keys of set 1
-        direction = lambda q, k, v: plain.masked_attention(q, k, v, mask0, mask1, H, DH**-0.5)
+        direction = lambda q, k, v: plain.masked_attention_packed(q, k, v, mask0, mask1, H, DH**-0.5)
         one = [t.clone().requires_grad_() for t in (qk0, qk1, v1)]
         out01 = fa.fused_attention_packed(*one, mask0, mask1, H)
         got = torch.autograd.grad(out01, one, g0, retain_graph=True)
@@ -381,23 +391,25 @@ def check_cross_attention(form, seed):
 
 
 # ------------------------------------------------------------------ phase 4
-def homography(seed, h, w):
-    """A mild random homography in pixel coordinates (3x3 float64 list)."""
+def homography(seed, h, w, difficulty=1.0):
+    """A mild random homography in pixel coordinates (3x3 float64 array):
+    rotation within 8 degrees, translation within 5% of the side; `difficulty`
+    scales the range of the scale change and of the perspective terms."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
     ang = math.radians(rng.uniform(-8, 8))
-    sc = rng.uniform(0.9, 1.1)
+    sc = 1.0 + (rng.uniform(0.9, 1.1) - 1.0) * difficulty
     c, s = math.cos(ang) * sc, math.sin(ang) * sc
     cx, cy = w / 2, h / 2
     tx, ty = rng.uniform(-0.05, 0.05) * w, rng.uniform(-0.05, 0.05) * h
     A = np.array([[c, -s, cx + tx - c * cx + s * cy], [s, c, cy + ty - s * cx - c * cy], [0, 0, 1]])
     P = np.eye(3)
-    P[2, :2] = rng.uniform(-2e-5, 2e-5, 2) * 640 / w
+    P[2, :2] = rng.uniform(-2e-5, 2e-5, 2) * 640 / w * difficulty
     return P @ A
 
 
-def synthetic_pair(seed, b, h, w):
+def synthetic_pair(seed, b, h, w, difficulty=1.0):
     """Images (B, H, W, 1) in [0, 1] with sharp structure, and their warps by
     per-pair homographies H (image0 -> image1), made with grid_sample."""
     import numpy as np
@@ -411,7 +423,8 @@ def synthetic_pair(seed, b, h, w):
     img = img + 0.6 * F.interpolate(fine, size=(h, w), mode="nearest")
     img = (img - img.amin((2, 3), keepdim=True)) / (
         img.amax((2, 3), keepdim=True) - img.amin((2, 3), keepdim=True))
-    hs = torch.from_numpy(np.stack([homography(seed * 100 + i, h, w) for i in range(b)]))
+    hs = torch.from_numpy(np.stack([homography(seed * 100 + i, h, w, difficulty)
+                                    for i in range(b)]))
     hs = hs.to("cuda")
     ys, xs = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float64) + 0.5,
                             torch.arange(w, device="cuda", dtype=torch.float64) + 0.5,
@@ -426,14 +439,16 @@ def synthetic_pair(seed, b, h, w):
     return to_bhwc(img), to_bhwc(img1), hs
 
 
-def pipeline(k):
+def pipeline(k, extractor=None, matcher=None):
+    """The two-view pipeline with the committed weights; `extractor` and
+    `matcher` override the main path's configuration."""
     from gluefactory_tpu_torch.models import get_model
     from gluefactory_tpu_torch.weights import load_hermetic
 
     conf = {
-        "extractor": {"name": "superpoint_open", "max_num_keypoints": k},
+        "extractor": {"name": "superpoint_open", "max_num_keypoints": k, **(extractor or {})},
         "matcher": {"name": "lightglue", "filter_threshold": 0.1, "mp": True,
-                    "collect_layers": False},
+                    "collect_layers": False, **(matcher or {})},
     }
     pipe = get_model("two_view_pipeline")(conf, device="cuda")
     pipe.load_state_dict(load_hermetic(device="cuda"), strict=True)
@@ -448,9 +463,10 @@ def counters():
 
 
 def set_launches(kernels, n, counts):
-    """Record the launch counts of one pipeline run on the rows of size n."""
+    """Record the launch counts of one pipeline run on the block and
+    assignment rows of size n."""
     for k in kernels:
-        if str(n) in k["name"]:
+        if "key" not in k and str(n) in k["name"]:
             k["launches"] = counts[0 if "self" in k["name"] else 1 if "cross" in k["name"] else 2]
 
 
@@ -720,6 +736,408 @@ def run_training():
     return per_step
 
 
+# ------------------------------ phase 3: the per-head attention and block 0
+HEADS_B, HEADS_N = 8, 1024  # SuperGlue's attention at the main shape: (8, 4, 1024, 64)
+
+
+def heads_inputs(gen, b, *lengths):
+    import torch
+
+    xs = [torch.randn(b, H, n, DH, generator=gen, device="cuda") for n in lengths]
+    masks = {n: torch.rand(b, n, generator=gen, device="cuda") > 0.2 for n in set(lengths)}
+    return xs, masks
+
+
+def check_heads_attention(seed):
+    """K7a at (8, 4, 1024, 64) fp32 through `ops.attention.masked_attention`,
+    forward and gradients (K7b on the per-head layout); Nq != Nk once."""
+    import torch
+    import torch.nn.functional as F
+
+    from gluefactory_tpu_torch.ops import attention as ops
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, n = HEADS_B, HEADS_N
+    err_f = err_b = 0.0
+    for nq, nk in ((n, 768), (n, n)):
+        (q, k, v, do), masks = heads_inputs(gen, b, nq, nk, nk, nq)
+        mq = masks[nq]
+        mk = masks[nk] if nk != nq else torch.rand(b, nk, generator=gen, device="cuda") > 0.2
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ops.masked_attention(*leaves, mq, mk)
+        grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
+        torch.cuda.synchronize()
+        fn = lambda a, b_, c: ops.attention_heads(a, b_, c, mq, mk, DH**-0.5)
+        err_f = max(err_f, compare(out, fn(q, k, v), "float32", f"K7a forward {nq} x {nk}"))
+        if float(out.detach().transpose(1, 2)[~mq].abs().max()) != 0.0:
+            fail("K7a: an invalid query row is not exactly zero")
+        err_b = max(err_b, max(
+            compare(g, r, "float32", f"K7a gradient d{w} {nq} x {nk}")
+            for g, r, w in zip(grads, autograd_reference(fn, (q, k, v), (do,)), "qkv")))
+    log(f"[kernel] K7a / K7b per-head form: forward max abs err {err_f:.3g}, gradients "
+        f"{err_b:.3g} (atol %g + rtol %g)" % TOL["float32"])
+    ms = timed(lambda: ops.masked_attention(q, k, v, mq, mk), 10)
+    ms_b = timed(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 10)
+    plain_ms = timed(lambda: fn(q, k, v), 3, warmup=1)
+    amask = mk[:, None, None, :]
+    lib_ms = timed(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask), 10)
+    pairs = float((mq.sum(1).double() * mk.sum(1).double()).sum())
+    act = b * n * D * 4
+    bms, by = attention_bound(pairs, 2, 4 * act + 2 * b * n + b * H * n * 4)
+    log(f"[kernel] K7b on the per-head layout, one direction (8, 4, 1024, 64) f32: "
+        f"{ms_b:.4f} ms")
+    return dict(max_abs_err=err_f, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, tol="atol %g + rtol %g" % TOL["float32"])
+
+
+def check_heads_cross(seed):
+    """K7c at (8, 4, 1024, 64) x (8, 4, 1024, 64) fp32 through
+    `ops.attention.cross_attention_bidirectional`, forward and gradients; M != N
+    once. Returns its row and its launches through that entry point."""
+    import torch
+    import torch.nn.functional as F
+
+    from gluefactory_tpu_torch.ops import attention as ops
+    from gluefactory_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, n = HEADS_B, HEADS_N
+    err_f = err_b = 0.0
+    for m_, n_ in ((768, n), (n, n)):
+        (qk0, v0, g0, qk1, v1, g1), masks = heads_inputs(gen, b, m_, m_, m_, n_, n_, n_)
+        mask0 = masks[m_]
+        mask1 = masks[n_] if n_ != m_ else torch.rand(b, n_, generator=gen, device="cuda") > 0.2
+        args = (qk0, qk1, v0, v1)
+        leaves = [t.clone().requires_grad_() for t in args]
+        out = ops.cross_attention_bidirectional(*leaves, mask0, mask1)
+        grads = torch.autograd.grad(out, leaves, (g0, g1))
+        torch.cuda.synchronize()
+        fn = lambda *a: ops.cross_attention_heads(*a, mask0, mask1)
+        err_f = max(err_f, max(compare(o, r, "float32", f"K7c forward m{i} {m_} x {n_}")
+                               for i, (o, r) in enumerate(zip(out, fn(*args)))))
+        err_b = max(err_b, max(
+            compare(g, r, "float32", f"K7c gradient {i} {m_} x {n_}")
+            for i, (g, r) in enumerate(zip(grads, autograd_reference(fn, args, (g0, g1))))))
+    log(f"[kernel] K7c: forward max abs err {err_f:.3g}, gradients (dqk, dv) {err_b:.3g} "
+        f"(atol %g + rtol %g)" % TOL["float32"])
+    # the entry point's own launch, counted apart from the comparisons above
+    fa.fused_cross_attention.launches = 0
+    ops.cross_attention_bidirectional(*args, mask0, mask1)
+    torch.cuda.synchronize()
+    launches = fa.fused_cross_attention.launches
+    ms = timed(lambda: ops.cross_attention_bidirectional(*args, mask0, mask1), 10)
+    plain_ms = timed(lambda: fn(*args), 3, warmup=1)
+    a0, a1 = mask0[:, None, None, :], mask1[:, None, None, :]
+    lib_ms = timed(lambda: (F.scaled_dot_product_attention(qk0, qk1, v1, attn_mask=a1),
+                            F.scaled_dot_product_attention(qk1, qk0, v0, attn_mask=a0)), 10)
+    pairs = float((mask0.sum(1).double() * mask1.sum(1).double()).sum())
+    act = b * n * D * 4
+    bms, by = attention_bound(pairs, 3, 6 * act + 2 * b * n + 2 * b * H * n * 4)
+    row = dict(max_abs_err=err_f, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+               bound_by=by, tol="atol %g + rtol %g" % TOL["float32"])
+    return row, launches
+
+
+def check_block0(seed):
+    """K8 with the committed weights of SuperPoint's first block against its
+    plain version, at the two shapes the serving path gives it: one view of a
+    batch-8 pair batch, (8, 480, 640, 1), which the row times and bounds, and
+    the two stacked views of a single pair, (2, 480, 640, 1). The yardstick is
+    the same block through the port's bf16 cuDNN trunk, which the fused path
+    never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from gluefactory_tpu_torch.ops import block0_conv as b0
+
+    ext = pipeline(1024).extractor
+    weights = [t.detach().float().contiguous()
+               for t in (*ext.blocks[0].raw(), *ext.blocks[1].raw())]
+    img0, img1, _ = synthetic_pair(seed, 8, 480, 640)
+
+    def held(image):
+        out = b0.block0_fused(image, *weights)
+        torch.cuda.synchronize()
+        ref = b0.block0_plain(image, *weights)
+        err = compare(out, ref, "bfloat16", f"K8 block0 {tuple(image.shape)}")
+        mean = float((out.float() - ref.float()).abs().mean())
+        if mean > 2e-3:
+            fail(f"K8 {tuple(image.shape)}: mean abs err {mean:.3g} against the plain "
+                 f"version (> 2e-3)")
+        return err, mean, timed(lambda: b0.block0_fused(image, *weights), 5)
+
+    pair = torch.cat([img0[:1], img1[:1]]).contiguous()
+    err1, mean1, ms1 = held(pair)
+    log(f"[kernel] K8 at (2, 480, 640, 1), the stacked views of one pair: max abs err "
+        f"{err1:.3g}, mean {mean1:.3g}; {ms1:.4f} ms")
+    image = img0.contiguous()
+    err, mean, ms = held(image)
+    plain_ms = timed(lambda: b0.block0_plain(image, *weights), 3, warmup=1)
+    x = image.permute(0, 3, 1, 2).bfloat16()
+    with torch.no_grad():
+        lib_ms = timed(lambda: F.max_pool2d(ext.blocks[1](ext.blocks[0](x)), 2, 2), 5)
+    b, h, w, _ = image.shape
+    flops = 2.0 * 9 * 64 * (1 + 64) * b * h * w
+    nbytes = b * h * w * 4 + b * (h // 2) * (w // 2) * 64 * 2 + (9 * 64 * 65 + 6 * 64) * 4
+    bms, by = bound(flops, nbytes, PEAK_BF16)
+    log(f"[kernel] K8 at (8, 480, 640, 1): mean abs err {mean:.3g}; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return dict(max_abs_err=max(err, err1), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by,
+                tol="atol %g + rtol %g, mean abs err <= 2e-3" % TOL["bfloat16"])
+
+
+# ------------------------------------------------------------------ phase 6
+ADAPTIVE = {"depth_confidence": 0.95, "width_confidence": 0.99, "width_capacity": 0.5}
+
+
+def serving_counters():
+    """K8, K1, K2, K4, K5, K6a: what the adaptive serving path may launch."""
+    from gluefactory_tpu_torch.ops import block0_conv as b0
+    from gluefactory_tpu_torch.ops import fused_attention as fa
+    from gluefactory_tpu_torch.ops import lightglue_block as lb
+    from gluefactory_tpu_torch.ops import log_assignment as la
+
+    return (b0.block0_fused, lb.fused_self_block, lb.fused_cross_block, la.fused_log_assignment,
+            fa.fused_attention_packed, fa.fused_cross_attention_packed)
+
+
+def counted(pipe, data):
+    """One forward with the serving counters set to 0 just before and read
+    just after: (output, [K8, K1, K2, K4, K5, K6a launches])."""
+    import torch
+
+    torch.cuda.synchronize()
+    for fn in serving_counters():
+        fn.launches = 0
+    out = pipe(data)
+    torch.cuda.synchronize()
+    return out, [fn.launches for fn in serving_counters()]
+
+
+def check_adaptive_output(out, counts, views, label):
+    """The launch counts against the exit layer, finiteness, and that no
+    padded or pruned keypoint is matched. Returns the exit layer."""
+    import torch
+
+    stop = int(out["stop_layer"])
+    expect = [views, stop + 1, stop + 1, 1, 0, 0]
+    log(f"[{label}] stop_layer {stop}; launches K8 {counts[0]}, K1 {counts[1]}, K2 {counts[2]}, "
+        f"K4 {counts[3]}, K5 {counts[4]}, K6a {counts[5]}")
+    if counts != expect:
+        fail(f"{label}: expected launches {expect} (K8 once an extractor call, K1 = K2 = "
+             f"stop_layer + 1, K4 = 1, no unfused layer), got {counts}")
+    for key in ("matches0", "matching_scores0", "log_assignment", "descriptors0", "prune0"):
+        if not torch_finite(out[key]):
+            fail(f"{label}: non-finite {key}")
+    for i in "01":
+        dead = ~out[f"keypoint_mask{i}"] | (out[f"prune{i}"] < stop + 2)
+        if bool((out[f"matches{i}"][dead] >= 0).any()):
+            fail(f"{label}: a padded or pruned keypoint of view {i} was matched")
+    if int((out["matches0"] >= 0).sum()) == 0:
+        fail(f"{label}: no matches")
+    return stop
+
+
+def pruned_share(out):
+    stop = int(out["stop_layer"])
+    valid = out["keypoint_mask0"]
+    return float(((out["prune0"] < stop + 2) & valid).sum()) / max(int(valid.sum()), 1)
+
+
+def run_adaptive_serving():
+    """Phase 6; returns K8's launches in the adaptive b8 forward."""
+    import torch
+
+    b, h, w, k = 8, 480, 640, 1024
+    img0, img1, hs = synthetic_pair(3, b, h, w, difficulty=0.15)
+    size = torch.tensor([[float(w), float(h)]] * b, device="cuda")
+    data = {"view0": {"image": img0, "image_size": size},
+            "view1": {"image": img1, "image_size": size}}
+    data1 = {v: {kk: t[:1] for kk, t in d.items()} for v, d in data.items()}
+    fused0 = {"fused_block0": True}
+
+    full = pipeline(k)
+    adaptive = pipeline(k, extractor=fused0, matcher=ADAPTIVE)
+    out, counts = counted(adaptive, data)
+    stop8 = check_adaptive_output(out, counts, 2, "adaptive b8")
+    k8_launches = counts[0]
+    out1, counts1 = counted(adaptive, data1)
+    stop1 = check_adaptive_output(out1, counts1, 1, "adaptive b1")
+    comp8, comp = int(out["compact_layer"]), int(out1["compact_layer"])
+    log(f"[adaptive] exit layer {stop8} at b8, {stop1} at b1 (of 0..8); keypoints pruned by the "
+        f"exit: {pruned_share(out):.4f} at b8, {pruned_share(out1):.4f} at b1; compact phase "
+        f"from layer {comp8} at b8, {comp} at b1 (-1: the active sets never fit 512)")
+
+    # fp32 against the port's plain path on the card, on the same extracted features
+    fp32 = pipeline(k, extractor=fused0, matcher={**ADAPTIVE, "mp": False})
+    got = fp32(data)
+    feats = {key: got[key] for key in got if key[:-1] in (
+        "keypoints", "keypoint_scores", "descriptors", "keypoint_mask")}
+    with plain_path():
+        ref = fp32.matcher({**data, **feats})
+    valid = got["keypoint_mask0"]
+    agree = float((got["matches0"] == ref["matches0"])[valid].float().mean())
+    log(f"[adaptive fp32] stop_layer {int(got['stop_layer'])} (plain path "
+        f"{int(ref['stop_layer'])}); prune0 / prune1 equal: "
+        f"{bool(torch.equal(got['prune0'], ref['prune0']))} / "
+        f"{bool(torch.equal(got['prune1'], ref['prune1']))}; matches0 equal on {agree:.4f} "
+        f"of valid keypoints")
+    if int(got["stop_layer"]) != int(ref["stop_layer"]):
+        fail("adaptive fp32: stop_layer differs from the plain path's")
+    if not (torch.equal(got["prune0"], ref["prune0"]) and torch.equal(got["prune1"], ref["prune1"])):
+        fail("adaptive fp32: prune counts differ from the plain path's")
+    if agree < 0.99:
+        fail(f"adaptive fp32: matches0 agrees with the plain path on {agree:.4f} < 0.99")
+
+    # bf16: a hard threshold on bf16 confidences may move the exit by a layer
+    got = adaptive(data)
+    feats = {key: got[key] for key in feats}
+    with plain_path():
+        ref = adaptive.matcher({**data, **feats})
+    agree = float((got["matches0"] == ref["matches0"])[got["keypoint_mask0"]].float().mean())
+    gap = abs(int(got["stop_layer"]) - int(ref["stop_layer"]))
+    log(f"[adaptive bf16] stop_layer {int(got['stop_layer'])} (plain path "
+        f"{int(ref['stop_layer'])}); matches0 equal on {agree:.4f} of valid keypoints")
+    if gap > 1 or agree < 0.95:
+        fail(f"adaptive bf16: stop_layer {gap} apart (> 1) or matches0 agreement {agree:.4f} < 0.95")
+
+    # the compact phase: with under 512 valid keypoints a side the active sets fit the
+    # capacity at once, and every layer runs on gathered (B, 512) buffers
+    few = {**feats, "keypoint_mask0": feats["keypoint_mask0"].clone(),
+           "keypoint_mask1": feats["keypoint_mask1"].clone()}
+    few["keypoint_mask0"][:, 500:] = False
+    few["keypoint_mask1"][:, 480:] = False
+    for fn in serving_counters():
+        fn.launches = 0
+    got = fp32.matcher({**data, **few})
+    torch.cuda.synchronize()
+    counts = [fn.launches for fn in serving_counters()]
+    stop, at = int(got["stop_layer"]), int(got["compact_layer"])
+    with plain_path():
+        ref = fp32.matcher({**data, **few})
+    agree = float((got["matches0"] == ref["matches0"])[few["keypoint_mask0"]].float().mean())
+    log(f"[adaptive compact] 500 x 480 valid keypoints, fp32: compact from layer {at}, "
+        f"stop_layer {stop} (plain path {int(ref['stop_layer'])}), launches K1 {counts[1]}, "
+        f"K2 {counts[2]}, K4 {counts[3]}; matches0 equal on {agree:.4f} of valid keypoints")
+    if at != 0 or counts[1:] != [stop + 1, stop + 1, 1, 0, 0]:
+        fail(f"adaptive compact: expected the compact phase from layer 0 and K1 = K2 = "
+             f"{stop + 1} launches, got layer {at} and {counts}")
+    if (stop != int(ref["stop_layer"]) or agree < 0.99
+            or bool((got["matches0"][~few["keypoint_mask0"]] >= 0).any())):
+        fail("adaptive compact: disagrees with the plain path, or matched a padded keypoint")
+
+    # speed on the same pairs: full depth, adaptive, and the adaptive loop that never exits
+    plain_ext = pipeline(k, matcher=ADAPTIVE)
+    never = pipeline(k, matcher={"depth_confidence": 2.0})  # a share of tokens never passes 1
+    if int(never(data)["stop_layer"]) != 8:
+        fail("the unreachable depth_confidence exited early")
+    pipes = (("full depth", full), ("adaptive, fused block 0", adaptive),
+             ("adaptive, cuDNN block 0", plain_ext), ("adaptive loop, no exit", never))
+    # host-clock times spread from round to round: measure the pipelines in turns and
+    # keep each one's median
+    rounds = {name: ([], []) for name, _ in pipes}
+    for _ in range(5):
+        for name, pipe in pipes:
+            rounds[name][0].append(8000.0 / pairs_per_s(pipe, data, iters=4))
+            rounds[name][1].append(1000.0 / pairs_per_s(pipe, data1, iters=10))
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    rows = {}
+    for name, pipe in pipes:
+        b8s, b1s = rounds[name]
+        res, res1 = pipe(data), pipe(data1)
+        rows[name] = (med(b8s), med(b1s))
+        log(f"[adaptive] {name}: {8000.0 / med(b8s):.2f} pairs/s at b8 ({med(b8s):.2f} ms a "
+            f"batch, {min(b8s):.2f}-{max(b8s):.2f} over 5 rounds), b1 latency {med(b1s):.2f} ms "
+            f"({min(b1s):.2f}-{max(b1s):.2f}); exit layer {int(res['stop_layer'])} at b8, "
+            f"{int(res1['stop_layer'])} at b1; precision@3px {precision(res, hs):.4f}, "
+            f"matches {int((res['matches0'] >= 0).sum())}")
+    log(f"[adaptive] the adaptive loop's own cost (its confidence heads and one host read a "
+        f"layer; no exit, against full depth): "
+        f"{rows['adaptive loop, no exit'][0] - rows['full depth'][0]:+.2f} ms a b8 batch, "
+        f"{rows['adaptive loop, no exit'][1] - rows['full depth'][1]:+.2f} ms at b1")
+    # the same full-depth pipeline at b1 without the others in between, on this phase's
+    # pair and on phase 4's: tells the pair's share of a host-clock difference between the
+    # two phases from the share of the interleaving
+    img0, img1, _ = synthetic_pair(1, b, h, w)
+    data4 = {"view0": {"image": img0[:1], "image_size": size[:1]},
+             "view1": {"image": img1[:1], "image_size": size[:1]}}
+    alone = {name: sorted(1000.0 / pairs_per_s(full, d, iters=10) for _ in range(5))
+             for name, d in (("this phase's pair", data1), ("phase 4's pair", data4))}
+    log("[adaptive] full depth at b1 alone, 5 x 10 forwards: " + "; ".join(
+        f"{name} {ms[2]:.2f} ms ({ms[0]:.2f}-{ms[-1]:.2f})" for name, ms in alone.items())
+        + f"; in turns with the other pipelines {rows['full depth'][1]:.2f} ms")
+    views = lambda p: [p.extractor(data[v]) for v in ("view0", "view1")]
+    ext_plain = timed(lambda: views(full), 5)
+    ext_fused = timed(lambda: views(adaptive), 5)
+    log(f"[adaptive] extractor, both views of a b8 batch: {ext_plain:.2f} ms with the cuDNN "
+        f"block 0, {ext_fused:.2f} ms with fused_block0")
+    return k8_launches
+
+
+# ------------------------------------------------------------------ phase 7
+def run_superglue():
+    """Phase 7; returns K7a's launches in one SuperGlue forward."""
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.models.matchers import superglue as sgmod
+    from gluefactory_tpu_torch.ops import attention as ops
+    from gluefactory_tpu_torch.ops import fused_attention as fa
+
+    b, h, w, k = 8, 480, 640, 1024
+    img0, img1, _ = synthetic_pair(1, b, h, w)  # phase 4's pairs
+    size = torch.tensor([[float(w), float(h)]] * b, device="cuda")
+    ext = pipeline(k).extractor
+    data = {"view0": {"image_size": size}, "view1": {"image_size": size}}
+    for i, img in enumerate((img0, img1)):
+        data.update({f"{key}{i}": t for key, t in ext({"image": img}).items()})
+    model = get_model("superglue")({}, device="cuda").eval()
+    conf = model.conf
+    if (conf.GNN_layers, conf.descriptor_dim, conf.num_heads, conf.sinkhorn_iterations) != (
+            9, D, H, 50):
+        fail("SuperGlue is not at 9 layer pairs x 256, 4 heads, 50 Sinkhorn iterations")
+    torch.cuda.synchronize()
+    fa.fused_attention.launches = 0
+    out = model(data)
+    torch.cuda.synchronize()
+    launches = fa.fused_attention.launches
+    log(f"[superglue] K7a launches a forward: {launches}")
+    if launches != 36:
+        fail(f"SuperGlue: expected 36 K7a launches a forward (9 x (2 self + 2 cross)), got {launches}")
+    for key in ("matches0", "matching_scores0", "log_assignment"):
+        if not torch_finite(out[key]):
+            fail(f"SuperGlue: non-finite {key}")
+    if tuple(out["log_assignment"].shape) != (b, k + 1, k + 1):
+        fail(f"SuperGlue: log_assignment is {tuple(out['log_assignment'].shape)}")
+    if bool((out["matches0"][~data["keypoint_mask0"]] >= 0).any()):
+        fail("SuperGlue: a padded keypoint was matched")
+    # against the plain path on the card
+    saved = sgmod.masked_attention
+    sgmod.masked_attention = lambda q, k_, v, mq, mk: ops.attention_heads(
+        q, k_, v, mq, mk, q.shape[-1] ** -0.5).to(q.dtype)
+    try:
+        ref = model(data)
+    finally:
+        sgmod.masked_attention = saved
+    if fa.fused_attention.launches != 36:
+        fail("SuperGlue: the plain path launched the kernel")
+    la_err = float((out["log_assignment"] - ref["log_assignment"]).abs().max())
+    agree = float((out["matches0"] == ref["matches0"])[data["keypoint_mask0"]].float().mean())
+    log(f"[superglue] against the plain path: log_assignment within {la_err:.3g} (bar 1e-3), "
+        f"matches0 equal on {agree:.4f} of valid keypoints (bar 0.99); "
+        f"{int((out['matches0'] >= 0).sum())} matches from seeded weights")
+    if not la_err <= 1e-3 or agree < 0.99:
+        fail("SuperGlue disagrees with its plain path")
+    ms = timed(lambda: model(data), 5)
+    scores = torch.randn(b, k, k, device="cuda")
+    sink = timed(lambda: sgmod.log_optimal_transport(
+        scores, model.bin_score, 50, data["keypoint_mask0"], data["keypoint_mask1"]), 5)
+    log(f"[superglue] {ms:.2f} ms a b8 batch ({8000.0 / ms:.2f} pairs/s, features given); "
+        f"Sinkhorn (50 iterations) {sink:.2f} ms, {sink / ms:.3f} of it")
+    return launches, ms
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     global TRAIN_B
@@ -794,6 +1212,18 @@ def main() -> int:
     for key, name, line in att_rows:
         kernels.append(dict(name=name, key=key, route="cuda", source=SRC_ATT,
                             replaces=f"{PAL_ATT}:{line}", **att[key]))
+    pal_conv = "gluefactory_tpu/ops/pallas_conv.py:222"
+    kernels.append(dict(
+        name="K8 block0_fused (8, 480, 640, 1) f32 -> (8, 240, 320, 64) bf16", key="K8",
+        route="cuda", source="gluefactory_tpu_torch/csrc/block0_conv.cu", replaces=pal_conv,
+        **check_block0(23)))
+    kernels.append(dict(
+        name=f"K7a fused_attention ({HEADS_B}, {H}, {HEADS_N}, {DH}) f32", key="K7a",
+        route="cuda", source=SRC_ATT, replaces=f"{PAL_ATT}:116", **check_heads_attention(24)))
+    k7c_row, k7c_launches = check_heads_cross(25)
+    kernels.append(dict(
+        name=f"K7c fused_cross_attention ({HEADS_B}, {H}, {HEADS_N}, {DH}) x same f32", key="K7c",
+        route="cuda", source=SRC_ATT, replaces=f"{PAL_ATT}:567", **k7c_row))
     for k in kernels:
         log(f"[kernel] {k['name']}: matches its plain version within {k['tol']} "
             f"(max abs err {k['max_abs_err']:.3g})")
@@ -815,7 +1245,8 @@ def main() -> int:
     log(f"[main b8] {pps:.2f} pairs/s at b8; b1 latency {b1_ms:.2f} ms; "
         f"precision@3px {prec:.4f} (synthetic homography pairs)")
     ext_ms = timed(lambda: [pipe.extractor(data[v]) for v in ("view0", "view1")], 5)
-    matcher_ms = sum(k["ms"] * k["launches"] for k in kernels if "1024" in k["name"])
+    matcher_ms = sum(k["ms"] * k["launches"] for k in kernels
+                     if "key" not in k and "1024" in k["name"])
     log(f"[main b8] per batch: {8000.0 / pps:.2f} ms end to end; extractor {ext_ms:.2f} ms "
         f"(both views); matcher kernels {matcher_ms:.2f} ms (kernel_ms x launches)")
 
@@ -831,13 +1262,24 @@ def main() -> int:
 
     # 5. training
     per_step = run_training()
+    step_ms = sum(k["ms"] * per_step[k["key"]] for k in kernels
+                  if k.get("key") in per_step and k["key"] != "K6a")
+    log(f"[train] attention kernels per step (kernel_ms x launches, m == n): {step_ms:.2f} ms")
+    torch.cuda.empty_cache()
+
+    # 6. adaptive serving; 7. SuperGlue
+    per_step["K8"] = run_adaptive_serving()
+    torch.cuda.empty_cache()
+    per_step["K7a"], sg_ms = run_superglue()
+    per_step["K7c"] = k7c_launches
+    k7a_ms = next(k["ms"] for k in kernels if k.get("key") == "K7a")
+    log(f"[superglue] K7a kernels (kernel_ms x launches): {k7a_ms * per_step['K7a']:.2f} ms, "
+        f"{k7a_ms * per_step['K7a'] / sg_ms:.3f} of the forward")
     for k in kernels:
         if "key" in k:
             k["launches"] = per_step[k["key"]]
         if k.get("launches", 0) < 1:
-            fail(f"{k['name']}: no launch on the main path")
-    step_ms = sum(k["ms"] * k["launches"] for k in kernels if k.get("key", "K6a") != "K6a")
-    log(f"[train] attention kernels per step (kernel_ms x launches, m == n): {step_ms:.2f} ms")
+            fail(f"{k['name']}: no launch on its path")
 
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"

@@ -41,7 +41,13 @@ SIGNATURES = {
         "at_cross_fwd_pair": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _F, _I, _P],
         "at_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _F, _I, _P],
+                        _F, _I, _I, _P],
+        "at_attn_fwd_heads": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        "at_cross_fwd_heads": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                               _P],
+    },
+    "block0_conv": {
+        "b0_block0": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "log_assignment": {
         "la_lse_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

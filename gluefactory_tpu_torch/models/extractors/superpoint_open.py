@@ -4,7 +4,10 @@
 The plain VGG trunk: conv -> ReLU -> BatchNorm (eps 1e-3) blocks. The JAX
 package's space-to-depth trunk is a TPU layout trick with the same math and
 is not carried over; the convolutions go to `torch.nn.functional.conv2d`,
-as the JAX package leaves them to XLA. Images are (B, H, W, C) in [0, 1];
+as the JAX package leaves them to XLA. With `fused_block0` (True, or "auto"
+on a CUDA device) the first block (two 64-channel convs at full resolution
+and the pool) runs as one kernel, ops/block0_conv.py, in bf16; it is off by
+default, as in the JAX package. Images are (B, H, W, C) in [0, 1];
 outputs: keypoints (B, K, 2) xy at pixel centers (+0.5), keypoint_scores
 (B, K), descriptors (B, K, D), keypoint_mask (B, K) bool.
 """
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.block0_conv import block0_fused
 from ..base_model import BaseModel
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, None: None}
@@ -82,9 +86,18 @@ class VGGBlock(nn.Module):
                      padding=self.conv.padding)
         if self.relu:
             x = F.relu(x)
-        mul = self.bn_scale * torch.rsqrt(self.bn_var + 1e-3)
-        add = self.bn_bias - self.bn_mean * mul
+        mul, add = self.affine()
         return x * mul.to(dt)[:, None, None] + add.to(dt)[:, None, None]
+
+    def affine(self):
+        """The inference BatchNorm folded to (mul, add), one a channel."""
+        mul = self.bn_scale * torch.rsqrt(self.bn_var + 1e-3)
+        return mul, self.bn_bias - self.bn_mean * mul
+
+    def raw(self):
+        """(conv kernel in HWIO layout, conv bias, mul, add): what the fused
+        block-0 kernel reads."""
+        return (self.conv.weight.permute(2, 3, 1, 0), self.conv.bias, *self.affine())
 
 
 class SuperPoint(BaseModel):
@@ -99,6 +112,9 @@ class SuperPoint(BaseModel):
         "dense_outputs": False,
         "is_training": False,
         "dtype": "bfloat16",  # conv compute dtype; heads renormalise in fp32
+        # block 0 as one kernel (ops/block0_conv.py): True, False or "auto"
+        # (on when the module is on a CUDA device); H and W must then be even.
+        # Slower than the cuDNN trunk today (PERF.md), hence off by default.
         "fused_block0": False,
     }
     required_data_keys = ["image"]
@@ -108,8 +124,8 @@ class SuperPoint(BaseModel):
         conf = self.conf
         if conf.is_training:
             raise NotImplementedError("SuperPoint training is not ported yet (ROADMAP Queue 1)")
-        if conf.fused_block0 is True:
-            raise NotImplementedError("block0_fused is not ported yet (ROADMAP Queue 2, K8)")
+        if conf.fused_block0 not in (True, False, "auto"):
+            raise ValueError(f"fused_block0 must be True, False or 'auto', got {conf.fused_block0!r}")
         ch = list(conf.channels)
         blocks, cin = [], 1
         for c in ch[:-1]:
@@ -134,11 +150,23 @@ class SuperPoint(BaseModel):
             gray = torch.tensor([0.299, 0.587, 0.114], dtype=image.dtype, device=image.device)
             image = (image * gray).sum(-1, keepdim=True)
         dtype = _DTYPES[conf.get("dtype")]
-        x = image.permute(0, 3, 1, 2)
-        x = x.to(dtype) if dtype is not None else x
-
         n_trunk = 2 * (len(conf.channels) - 1)
-        for i in range(0, n_trunk, 2):
+        first = 0
+        fused = conf.fused_block0 is True or (
+            conf.fused_block0 == "auto" and image.device.type == "cuda")
+        # the kernel takes one input channel, 64 channels and a pooled block;
+        # anything else goes through the plain trunk. It raises on an odd side.
+        if fused and image.shape[-1] == 1 and conf.channels[0] == 64 and n_trunk > 2:
+            x = block0_fused(image.float(), *self.blocks[0].raw(), *self.blocks[1].raw())
+            x = x.permute(0, 3, 1, 2)  # NCHW over channels-last memory: no copy
+            if dtype != torch.bfloat16:  # the kernel computes in bf16; keep the conf's type
+                x = x.float()
+            first = 2
+        else:
+            x = image.permute(0, 3, 1, 2)
+            x = x.to(dtype) if dtype is not None else x
+
+        for i in range(first, n_trunk, 2):
             x = self.blocks[i + 1](self.blocks[i](x))
             if i < n_trunk - 2:
                 x = F.max_pool2d(x, 2, 2)

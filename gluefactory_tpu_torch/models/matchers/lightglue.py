@@ -1,5 +1,5 @@
-"""LightGlue matcher, full-depth inference and training (counterpart of
-gluefactory_tpu/models/matchers/lightglue.py).
+"""LightGlue matcher: full-depth and adaptive inference, and training
+(counterpart of gluefactory_tpu/models/matchers/lightglue.py).
 
 Parameters keep the JAX package's names and stacked (L, in, out) layout,
 so a flax tree maps onto them leaf for leaf (weights.params_from_jax).
@@ -24,13 +24,27 @@ are always collected for the deep-supervision `loss`; `checkpointed`
 recomputes each layer in the backward. The exit assignment is the plain
 differentiable one, as in the JAX package (the fused one is forward-only).
 
-Adaptive depth/width is not ported yet (ROADMAP Queue 1 item 6) and raises.
+Adaptive inference (`depth_confidence` and/or `width_confidence` > 0): a
+Python loop over the layers in place of the JAX package's `lax.while_loop`.
+After each layer the token confidences decide whether the whole batch stops
+(every element's confident share over `depth_confidence`), and tokens that
+are confident and unmatchable leave the active sets. The active masks are
+the kernels' masks, so pruning bites inside them. Once every element's
+active set fits the static capacity (`width_capacity`), the survivors are
+gathered into compact buffers and the remaining layers run there. The loop
+reads one flag pair (stop, fits) on the host a layer. A layer goes through
+the block kernels when both sides have one width that is a multiple of 128
+and at most 1024, else through the unfused layer (the attention kernels of
+ops/fused_attention.py). The exit assignment runs over the active tokens.
+Compaction never drops an active token: where the loop ends before the
+active sets fit, the full-width buffers are kept as they are.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -85,6 +99,9 @@ class LightGlue(BaseModel):
         "flash": True,  # training attention through the kernels (False: plain versions)
         "depth_confidence": -1.0,
         "width_confidence": -1.0,
+        # compact width of the pruned sets, a fraction of the keypoint count
+        # (or an absolute count); <= 0 keeps pruning mask-only
+        "width_capacity": 0.5,
         "filter_threshold": 0.0,
         "checkpointed": False,  # training: recompute each layer in the backward
         "collect_layers": True,
@@ -97,10 +114,6 @@ class LightGlue(BaseModel):
     def __init__(self, conf=None, device="cuda"):
         super().__init__(conf, device)
         conf = self.conf
-        if conf.depth_confidence > 0 or conf.width_confidence > 0:
-            raise NotImplementedError(
-                "adaptive depth/width inference is not ported yet (ROADMAP Queue 1 item 6)"
-            )
         if conf.add_scale_ori:
             raise NotImplementedError(
                 "add_scale_ori is not ported yet (ROADMAP Queue 1 item 9, with the "
@@ -138,6 +151,9 @@ class LightGlue(BaseModel):
         for name, make in shapes.items():
             self.register_parameter(name, nn.Parameter(make()))
         self.to(self.device)
+        # the fixed confidence schedule, fp32 values as Python floats
+        self.confidence_thresholds = np.clip(
+            0.8 + 0.1 * np.exp(-4.0 * np.arange(n) / n), 0.0, 1.0).astype(np.float32).tolist()
         self._cast_cache: dict = {}
         self._cast_stamp = None
 
@@ -207,17 +223,34 @@ class LightGlue(BaseModel):
         cos0, sin0 = self._posenc(kn0, m)
         cos1, sin1 = self._posenc(kn1, n)
 
-        run = self._run_layers_train if conf.is_training else self._run_layers
-        desc0, desc1, all0, all1 = run(desc0, desc1, (cos0, sin0), (cos1, sin1), mask0, mask1)
+        do_early_stop = conf.depth_confidence > 0 and not conf.is_training
+        do_point_pruning = conf.width_confidence > 0 and not conf.is_training
+        full = lambda k: torch.full((b, k), float(conf.n_layers), device=kpts0.device)
+        if do_early_stop or do_point_pruning:
+            ones = lambda k: torch.ones((b, k), dtype=torch.bool, device=kpts0.device)
+            (desc0, desc1, i_exit, act0, act1, prune0, prune1,
+             compact) = self._run_layers_adaptive(
+                desc0, desc1, (cos0, sin0), (cos1, sin1),
+                ones(m) if mask0 is None else mask0, ones(n) if mask1 is None else mask1)
+            all0, all1 = desc0[None], desc1[None]
+            # the exit assignment runs over the active tokens
+            if mask0 is not None or do_point_pruning:
+                mask0 = act0
+            if mask1 is not None or do_point_pruning:
+                mask1 = act1
+        else:
+            run = self._run_layers_train if conf.is_training else self._run_layers
+            desc0, desc1, all0, all1 = run(desc0, desc1, (cos0, sin0), (cos1, sin1), mask0, mask1)
+            i_exit = conf.n_layers - 1
+            prune0, prune1 = full(m), full(n)
+            compact = -1
 
-        i_exit = conf.n_layers - 1
         if conf.is_training:
             scores = self._assignment(i_exit, desc0, desc1, mask0, mask1)
             m0, m1, mscores0, mscores1 = filter_matches(scores, conf.filter_threshold)
         else:
             scores, m0, m1, mscores0, mscores1 = self._fused_assignment(
                 i_exit, desc0, desc1, mask0, mask1)
-        full = lambda k: torch.full((b, k), float(conf.n_layers), device=kpts0.device)
         return {
             "matches0": m0,
             "matches1": m1,
@@ -226,9 +259,11 @@ class LightGlue(BaseModel):
             "ref_descriptors0": all0.transpose(0, 1),  # (B, L, M, D)
             "ref_descriptors1": all1.transpose(0, 1),
             "log_assignment": scores,
-            "prune0": full(m),
-            "prune1": full(n),
+            "prune0": prune0,
+            "prune1": prune1,
             "stop_layer": torch.tensor(i_exit, dtype=torch.int32),
+            # first layer that ran on the compact buffers, -1 if none did
+            "compact_layer": torch.tensor(compact, dtype=torch.int32),
         }
 
     def _fused_assignment(self, i_exit, desc0, desc1, mask0, mask1):
@@ -280,6 +315,140 @@ class LightGlue(BaseModel):
                 layers.append(desc)
         alls = torch.stack(layers) if collect else desc[None]
         return desc[:b, :m], desc[b:, :n], alls[:, :b, :m], alls[:, b:, :n]
+
+    # ------------------------------------------------------ adaptive inference
+    def _resolve_capacity(self, n_pts: int) -> int:
+        """Static compact width for a side with n_pts slots (a multiple of 128
+        from 256 keypoints up, else of 8); 0 disables."""
+        cap = self.conf.width_capacity
+        if cap is None or cap <= 0 or self.conf.width_confidence <= 0:
+            return 0
+        c = int(cap) if cap > 1 else int(np.ceil(cap * n_pts))
+        mult = 128 if n_pts >= 256 else 8
+        c = int(min(n_pts, -(-c // mult) * mult))
+        return 0 if c >= n_pts else c
+
+    def _token_heads(self, i: int):
+        """(D, 2) weight and (2,) bias, fp32, of the two per-token heads read
+        after layer i: the confidence head (layer min(i, L - 2)) and the
+        matchability head (cached like the block weights)."""
+        key = ("heads", i)
+        if key not in self._cast_cache:
+            j = min(i, max(self.conf.n_layers - 2, 0))
+            w = torch.cat([self.conf_head_w[j], self.assign_match_w[i]], dim=1)
+            b = torch.cat([self.conf_head_b[j], self.assign_match_b[i]])
+            self._cast_cache[key] = (w.detach().float().contiguous(), b.detach().float())
+        return self._cast_cache[key]
+
+    def _make_adaptive_layer(self, enc0, enc1, dt):
+        """`layer(i, d0, d1, a0, a1) -> (d0, d1)` for sets of the widths of
+        enc0 / enc1, with the active masks a0 / a1 as the attention masks:
+        the block kernels when both widths are one kernel-friendly width,
+        else the unfused layer."""
+        nh = self.conf.num_heads
+        mloc, nloc = enc0[0].shape[1], enc1[0].shape[1]
+        if mloc == nloc and mloc % 128 == 0 and mloc <= 1024:
+            cos, sin = (torch.cat([e0, e1], dim=0).to(dt).contiguous()
+                        for e0, e1 in zip(enc0, enc1))
+
+            def layer(i, d0, d1, a0, a1):
+                b = d0.shape[0]
+                self_args, cross_args = self._block_weights(i, dt)
+                desc = torch.cat([d0, d1], dim=0)
+                mask = torch.cat([a0, a1], dim=0)
+                desc = fused_self_block(desc, cos, sin, mask, *self_args, num_heads=nh)
+                desc = fused_cross_block(desc, mask, *cross_args, num_heads=nh)
+                return desc[:b], desc[b:]
+
+            return layer
+        enc0, enc1 = (tuple(t.repeat(1, 1, nh).to(dt) for t in enc) for enc in (enc0, enc1))
+        return lambda i, d0, d1, a0, a1: self._layer(i, d0, d1, enc0, enc1, a0, a1)
+
+    def _run_layers_adaptive(self, desc0, desc1, enc0, enc1, act0, act1):
+        """Early exit on token confidence and point pruning, in two phases:
+        full-width buffers until every element's active set fits the static
+        capacity, then compact (B, C) buffers of the survivors (descriptors,
+        rotary encodings, masks) for the remaining layers. Returns (desc0,
+        desc1, exit layer, act0, act1, prune0, prune1, first compact layer or
+        -1); tokens pruned before
+        the compaction keep their stale descriptors, which the masked exit
+        assignment never reads."""
+        conf = self.conf
+        n_layers = conf.n_layers
+        b, m = act0.shape
+        n = act1.shape[1]
+        c0_cap, c1_cap = self._resolve_capacity(m), self._resolve_capacity(n)
+        use_compact = c0_cap > 0 and c1_cap > 0
+        self._drop_stale_casts()
+
+        # both sets' token state side by side, (B, M + N): one pass of small ops a layer
+        act = torch.cat([act0, act1], dim=1)
+        prune = torch.ones((b, m + n), device=act.device)
+
+        def fits_flag(a, split):
+            return (a[:, :split].sum(-1).max() <= c0_cap) & (a[:, split:].sum(-1).max() <= c1_cap)
+
+        d0, d1, a, split = desc0, desc1, act, m
+        layer = self._make_adaptive_layer(enc0, enc1, desc0.dtype)
+        idx, compact = None, -1
+        fits = use_compact and bool(fits_flag(a, m))  # masked inputs may fit at once
+        take = lambda t, ix: torch.gather(t, 1, ix[..., None].expand(-1, -1, t.shape[-1]))
+        i, stop = 0, False
+        while i < n_layers and not stop:
+            if use_compact and idx is None and fits:
+                # actives first, original order kept (stable sort)
+                first = lambda t, c: torch.argsort((~t).to(torch.uint8), dim=-1, stable=True)[:, :c]
+                idx0, idx1 = first(a[:, :m], c0_cap), first(a[:, m:], c1_cap)
+                idx = torch.cat([idx0, idx1 + m], dim=1)
+                desc0, desc1 = d0, d1  # the first phase's buffers; survivors return here
+                d0, d1, a, split = take(d0, idx0), take(d1, idx1), torch.gather(a, 1, idx), c0_cap
+                layer = self._make_adaptive_layer(
+                    tuple(take(t, idx0) for t in enc0), tuple(take(t, idx1) for t in enc1),
+                    desc0.dtype)
+                compact = i
+            d0, d1 = layer(i, d0, d1, a[:, :split], a[:, split:])
+            is_last = i == n_layers - 1
+            stop_flag = fit_flag = None
+            if not is_last:
+                w, bias = self._token_heads(i)
+                heads = torch.sigmoid(torch.cat([d0, d1], dim=1).float() @ w + bias)
+                conf_, match_ = heads[..., 0], heads[..., 1]
+                th = self.confidence_thresholds[i]
+                if conf.depth_confidence > 0:
+                    # inactive slots count as confident and are subtracted again, so
+                    # that the ratio is the same on the full and the compact view
+                    num = a.sum(-1).float()
+                    ratio = ((conf_ > th) | ~a).sum(-1).float() - (a.shape[1] - num)
+                    stop_flag = (ratio / num.clamp(min=1.0) > conf.depth_confidence).all()
+                if conf.width_confidence > 0:
+                    # keep likely-matchable or low-confidence tokens (without early exit
+                    # every token counts as confident); dropped again if the batch stops here
+                    keep = match_ > (1 - conf.width_confidence)
+                    if conf.depth_confidence > 0:
+                        keep = keep | (conf_ <= th)
+                    pruned = a & keep
+                    if use_compact and idx is None:
+                        fit_flag = fits_flag(pruned, split)
+            stop = is_last
+            flags = [f for f in (stop_flag, fit_flag) if f is not None]
+            if flags:
+                flags = torch.stack(flags).tolist()  # the one host read of the layer
+                stop = flags[0] if stop_flag is not None else stop
+                fits = flags[-1] if fit_flag is not None else fits
+            if conf.width_confidence > 0:
+                if not stop:
+                    a = pruned
+                # compact survivors' counts go back to their original slots
+                prune = prune + a.float() if idx is None else prune.scatter_add(1, idx, a.float())
+            i += 1
+
+        if idx is not None:
+            # survivors go back; never-gathered tokens keep their descriptors of
+            # the first phase and stay inactive
+            put = lambda full, ix, t: full.scatter(1, ix[..., None].expand(-1, -1, t.shape[-1]), t)
+            d0, d1 = put(desc0, idx0, d0), put(desc1, idx1, d1)
+            a = torch.zeros_like(act).scatter(1, idx, a)
+        return d0, d1, i - 1, a[:, :m], a[:, m:], prune[:, :m], prune[:, m:], compact
 
     # ------------------------------------------------- training: unfused layers
     def _dense(self, x, name: str, i: int):
@@ -389,10 +558,6 @@ class LightGlue(BaseModel):
         """Token-confidence logits at layer i < n - 1; no gradient reaches the
         descriptors."""
         return self._dense(desc.detach().float(), "conf_head", i)[..., 0]
-
-    def _confidence(self, i: int, desc0, desc1):
-        return (torch.sigmoid(self._confidence_logits(i, desc0)),
-                torch.sigmoid(self._confidence_logits(i, desc1)))
 
     def loss(self, pred: dict, data: dict):
         """Deep-supervised NLL + confidence BCE over all layers: per-layer

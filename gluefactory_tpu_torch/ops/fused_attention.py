@@ -1,10 +1,12 @@
-"""LightGlue's training attention: wrappers of the CUDA kernels in
+"""The attention kernels: wrappers of the CUDA kernels in
 csrc/attention.cu, with their gradients.
 
 Counterparts of gluefactory_tpu/ops/pallas_attention.py:
   fused_attention_packed (:421)         packed self attention
   fused_cross_attention_stacked (:779)  both cross directions, stacked sets
   fused_cross_attention_packed (:815)   both cross directions, two arrays
+  fused_attention (:253)                per-head attention, (B, H, N, Dh)
+  fused_cross_attention (:854)          per-head, both cross directions
   _fused_attention_bwd_bhnd (:202)      the attention backward
 Each is a `torch.autograd.Function`: on CUDA tensors the forward launches
 its kernel and the backward launches the backward kernel (twice for the
@@ -13,8 +15,9 @@ projection: dqk0 = dq(0<-1) + dk(1<-0)). On CPU tensors the forward runs
 the plain version of ops/attention.py and the backward the plain explicit
 formula `attention_backward`, so the formula itself is tested without a
 card. Nothing falls back on a CUDA tensor: a kernel that fails to build or
-launch raises. The backward works on the packed layout directly; the JAX
-package's head transposes around it are not carried over.
+launch raises. The backward works on either layout directly (a 3-D tensor
+is packed, a 4-D one per-head); the JAX package's head transposes around
+it are not carried over.
 
 Each wrapper counts its kernel launches in `.launches`; the backward also
 counts those made for a cross direction in `.cross_launches`.
@@ -50,6 +53,25 @@ def _check(what, num_heads, tensors, masks):
                               or m.device != x.device):
             raise ValueError(f"{what}: a mask must be a bool {tuple(t.shape[:2])} tensor "
                              f"on {x.device}")
+
+
+def _check_heads(what, tensors, masks):
+    x = tensors[0]
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what}: tensors must be float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 4 or x.shape[-1] != _DH:
+        raise ValueError(f"{what}: the kernels take (B, H, N, {_DH}) tensors, "
+                         f"got {tuple(x.shape)}")
+    for t in tensors:
+        if (t.device != x.device or t.dtype != x.dtype or t.ndim != 4
+                or t.shape[:2] != x.shape[:2] or t.shape[-1] != _DH):
+            raise ValueError(f"{what}: tensors must be (B, H, N, {_DH}) {x.dtype} on "
+                             f"{x.device} with one B and H")
+    for t, m in masks:
+        shape = (t.shape[0], t.shape[2])
+        if m is not None and (m.dtype != torch.bool or tuple(m.shape) != shape
+                              or m.device != x.device):
+            raise ValueError(f"{what}: a mask must be a bool {shape} tensor on {x.device}")
 
 
 def _c(t):
@@ -98,17 +120,50 @@ def launch_cross_fwd_pair(lib, stream, qk0, qk1, v0, v1, mask0, mask1, num_heads
     return m0, m1, lse0, lse1
 
 
+def launch_attention_fwd_heads(lib, stream, q, k, v, mask_q, mask_k, scale):
+    """Per-head layout: (context (B, H, Nq, Dh), log-sum-exp (B, H, Nq) fp32)."""
+    b, h, nq, _ = q.shape
+    nk = k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    _ext.check(lib.at_attn_fwd_heads(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(mask_q), _ptr(mask_k), _ptr(out), _ptr(lse),
+        b, h, nq, nk, scale, _DTYPES[q.dtype], stream), "at_attn_fwd_heads")
+    return out, lse
+
+
+def launch_cross_fwd_heads(lib, stream, qk0, qk1, v0, v1, mask0, mask1, scale):
+    """Per-head layout: (m0 (B, H, M, Dh), m1 (B, H, N, Dh), lse0 (B, H, M),
+    lse1 (B, H, N))."""
+    b, h, m, _ = qk0.shape
+    n = qk1.shape[2]
+    m0, m1 = torch.empty_like(qk0), torch.empty_like(qk1)
+    lse0 = torch.empty((b, h, m), dtype=torch.float32, device=qk0.device)
+    lse1 = torch.empty((b, h, n), dtype=torch.float32, device=qk0.device)
+    _ext.check(lib.at_cross_fwd_heads(
+        _ptr(qk0), _ptr(qk1), _ptr(v0), _ptr(v1), _ptr(mask0), _ptr(mask1), _ptr(m0),
+        _ptr(m1), _ptr(lse0), _ptr(lse1), b, h, m, n, scale, _DTYPES[qk0.dtype], stream),
+        "at_cross_fwd_heads")
+    return m0, m1, lse0, lse1
+
+
 def launch_attention_bwd(lib, stream, q, k, v, out, lse, mask_q, mask_k, dout, num_heads,
                          scale):
-    """(dq, dk, dv) of one attention direction through `lib`."""
-    s, nq, d = q.shape
-    nk = k.shape[1]
+    """(dq, dk, dv) of one attention direction through `lib`; packed
+    (S, N, D) or per-head (S, H, N, Dh) tensors."""
+    heads = q.ndim == 4
+    if heads:
+        s, _, nq, dh = q.shape
+        nk, d = k.shape[2], num_heads * dh
+    else:
+        s, nq, d = q.shape
+        nk = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     _ext.check(lib.at_attn_bwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse), _ptr(mask_q),
         _ptr(mask_k), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), s, nq, nk, d, num_heads,
-        scale, _DTYPES[q.dtype], stream), "at_attn_bwd")
+        scale, _DTYPES[q.dtype], int(heads), stream), "at_attn_bwd")
     return dq, dk, dv
 
 
@@ -117,14 +172,27 @@ def fused_attention_backward(q, k, v, out, lse, mask_q, mask_k, dout, num_heads:
                              cross: bool = False):
     """(dq, dk, dv) of `out = attention(q, k, v)` given d(out): the plain
     explicit formula on the CPU (out and lse are not needed there), the
-    backward kernels on the card. `cross` only says which count the launch
-    goes to."""
-    scale = (q.shape[-1] // num_heads) ** -0.5
+    backward kernels on the card. Packed (S, N, H*Dh) tensors, or per-head
+    (S, H, N, Dh) ones (`num_heads` is then read from them). `cross` only
+    says which count the launch goes to."""
+    heads = q.ndim == 4
+    if heads:
+        num_heads = q.shape[1]
+        scale = q.shape[-1] ** -0.5
+    else:
+        scale = (q.shape[-1] // num_heads) ** -0.5
     if q.device.type == "cpu":
+        if heads:
+            grads = plain.attention_backward_heads(q, k, v, mask_q, mask_k, dout, scale)
+            return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
         return plain.attention_backward(q, k, v, mask_q, mask_k, dout, num_heads, scale)
     q, k, v, out, dout, lse, mask_q, mask_k = map(_c, (q, k, v, out, dout, lse, mask_q, mask_k))
-    _check("fused_attention_backward", num_heads, (q, k, v, out, dout),
-           ((q, mask_q), (k, mask_k)))
+    if heads:
+        _check_heads("fused_attention_backward", (q, k, v, out, dout),
+                     ((q, mask_q), (k, mask_k)))
+    else:
+        _check("fused_attention_backward", num_heads, (q, k, v, out, dout),
+               ((q, mask_q), (k, mask_k)))
     grads = launch_attention_bwd(_ext.load("attention"), _stream(q), q, k, v, out, lse,
                                  mask_q, mask_k, dout, num_heads, scale)
     fused_attention_backward.launches += 1
@@ -139,7 +207,7 @@ class _AttentionPacked(torch.autograd.Function):
         ctx.num_heads = num_heads
         if q.device.type == "cpu":
             scale = (q.shape[-1] // num_heads) ** -0.5
-            out = plain.masked_attention(q, k, v, mask_q, mask_k, num_heads, scale).to(v.dtype)
+            out = plain.masked_attention_packed(q, k, v, mask_q, mask_k, num_heads, scale).to(v.dtype)
             lse = None
         else:
             q, k, v, mask_q, mask_k = map(_c, (q, k, v, mask_q, mask_k))
@@ -250,12 +318,79 @@ def fused_cross_attention_packed(qk0, qk1, v0, v1, mask0=None, mask1=None, num_h
     return _CrossAttentionPacked.apply(qk0, qk1, v0, v1, mask0, mask1, num_heads)
 
 
+# ------------------------------------------------------ the per-head entries
+class _AttentionHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask_q, mask_k):
+        if q.device.type == "cpu":
+            out = plain.attention_heads(q, k, v, mask_q, mask_k, q.shape[-1] ** -0.5).to(q.dtype)
+            lse = None
+        else:
+            q, k, v, mask_q, mask_k = map(_c, (q, k, v, mask_q, mask_k))
+            _check_heads("fused_attention", (q, k, v), ((q, mask_q), (k, mask_k)))
+            out, lse = launch_attention_fwd_heads(_ext.load("attention"), _stream(q), q, k, v,
+                                                  mask_q, mask_k, _DH**-0.5)
+            fused_attention.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse, mask_q, mask_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, mask_q, mask_k = ctx.saved_tensors
+        dq, dk, dv = fused_attention_backward(q, k, v, out, lse, mask_q, mask_k, dout)
+        return dq, dk, dv, None, None
+
+
+def fused_attention(q, k, v, mask_q=None, mask_k=None):
+    """Masked multi-head attention on the per-head layout: q (B, H, Nq, Dh),
+    k, v (B, H, Nk, Dh), scale Dh**-0.5; mask_q (B, Nq), mask_k (B, Nk) bool
+    or None. Returns (B, H, Nq, Dh) with zeros at invalid query rows and at
+    rows without a valid key. Differentiable."""
+    return _AttentionHeads.apply(q, k, v, mask_q, mask_k)
+
+
+class _CrossAttentionHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qk0, qk1, v0, v1, mask0, mask1):
+        if qk0.device.type == "cpu":
+            m0, m1 = plain.cross_attention_heads(qk0, qk1, v0, v1, mask0, mask1)
+            m0, m1, lse0, lse1 = m0.to(v1.dtype), m1.to(v0.dtype), None, None
+        else:
+            qk0, qk1, v0, v1, mask0, mask1 = map(_c, (qk0, qk1, v0, v1, mask0, mask1))
+            _check_heads("fused_cross_attention", (qk0, qk1, v0, v1),
+                         ((qk0, mask0), (qk1, mask1)))
+            if v0.shape != qk0.shape or v1.shape != qk1.shape:
+                raise ValueError("fused_cross_attention: qk0/v0 must be (B, H, M, Dh) and "
+                                 "qk1/v1 (B, H, N, Dh)")
+            m0, m1, lse0, lse1 = launch_cross_fwd_heads(
+                _ext.load("attention"), _stream(qk0), qk0, qk1, v0, v1, mask0, mask1,
+                _DH**-0.5)
+            fused_cross_attention.launches += 1
+        ctx.save_for_backward(qk0, qk1, v0, v1, m0, m1, lse0, lse1, mask0, mask1)
+        return m0, m1
+
+    @staticmethod
+    def backward(ctx, g0, g1):
+        grads = _cross_backward(*ctx.saved_tensors, g0, g1, None)
+        return (*grads, None, None)
+
+
+def fused_cross_attention(qk0, qk1, v0, v1, mask0=None, mask1=None):
+    """Bidirectional cross attention on the per-head layout, qk0/v0
+    (B, H, M, Dh) and qk1/v1 (B, H, N, Dh), M and N free, scale Dh**-0.5 on
+    the product. Returns (m0 (B, H, M, Dh), m1 (B, H, N, Dh)): the messages
+    into set 0 and into set 1. Differentiable."""
+    return _CrossAttentionHeads.apply(qk0, qk1, v0, v1, mask0, mask1)
+
+
 for _fn in (fused_attention_packed, fused_cross_attention_stacked,
-            fused_cross_attention_packed, fused_attention_backward):
+            fused_cross_attention_packed, fused_attention_backward, fused_attention,
+            fused_cross_attention):
     _fn.launches = 0
 fused_attention_backward.cross_launches = 0
 
 __all__ = [
     "fused_attention_packed", "fused_cross_attention_stacked",
-    "fused_cross_attention_packed", "fused_attention_backward",
+    "fused_cross_attention_packed", "fused_attention_backward", "fused_attention",
+    "fused_cross_attention",
 ]

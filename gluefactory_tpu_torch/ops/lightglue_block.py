@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _ext
-from .attention import apply_rotary, masked_attention
+from .attention import apply_rotary, masked_attention_packed
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,7 +61,7 @@ def self_block(
     q = (apply_rotary(q, cosf, sinf) * dh**-0.5).to(cd)
     k = apply_rotary(k, cosf, sinf).to(cd)
     m = mask.bool() if masked else None
-    ctx = masked_attention(q, k, v.to(cd), m, m, num_heads, 1.0).to(cd)
+    ctx = masked_attention_packed(q, k, v.to(cd), m, m, num_heads, 1.0).to(cd)
     return ffn_tail(x, ctx, wout, bout, wff1, bff1, lns, lnb, wff2, bff2)
 
 
@@ -79,7 +79,7 @@ def cross_block(
     other = lambda t: torch.cat([t[b:], t[:b]], dim=0)
     m = mask.bool() if masked else None
     mo = other(m) if masked else None
-    ctx = masked_attention(qk, other(qk), other(v), m, mo, num_heads, dh**-0.5).to(cd)
+    ctx = masked_attention_packed(qk, other(qk), other(v), m, mo, num_heads, dh**-0.5).to(cd)
     return ffn_tail(x, ctx, wout, bout, wff1, bff1, lns, lnb, wff2, bff2)
 
 

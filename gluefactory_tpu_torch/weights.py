@@ -19,6 +19,10 @@ a flat state dict of the port:
 (numpy arrays) of a port state dict, so that a trained checkpoint of the
 port can be handed to the JAX package.
 
+`superglue_from_flax(params)` maps the JAX SuperGlue's parameter tree to
+the port's SuperGlue state dict: `Dense_*` kernels (in, out) transposed to
+`nn.Linear` weights (out, in), LayerNorm scale / bias, `bin_score`.
+
 `load_hermetic(path)` reads the committed flat npz artifact
 (counterpart of gluefactory_tpu/models/matchers/lightglue_pretrained.py:20-67).
 """
@@ -118,6 +122,41 @@ def params_to_jax(state_dict: Mapping[str, Any]) -> dict:
     return tree
 
 
+_SG_GNN = re.compile(r"(self|cross)_(\d+)/(.+)$")
+_SG_DENSE = {"Dense_0": "q", "Dense_1": "k", "Dense_2": "v", "Dense_3": "out"}
+_SG_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+def _superglue_key(path: str) -> str:
+    """Port state-dict key of one leaf path of the JAX SuperGlue's tree."""
+    m = _SG_GNN.match(path)
+    prefix = ""
+    if m:  # layer 2i is the self step of pair i, 2i + 1 its cross step
+        prefix = f"gnn.{2 * int(m.group(2)) + (m.group(1) == 'cross')}."
+        path = m.group(3)
+    parts = path.split("/")
+    if parts[0] in ("kenc", "_MLP_0"):
+        prefix += "kenc." if parts[0] == "kenc" else "mlp."
+        kind, index = parts[1].rsplit("_", 1)
+        return f"{prefix}{'dense' if kind == 'Dense' else 'norm'}.{index}.{_SG_LEAF[parts[2]]}"
+    if len(parts) == 1:
+        return prefix + parts[0]  # bin_score
+    return f"{prefix}{_SG_DENSE.get(parts[0], parts[0])}.{_SG_LEAF[parts[1]]}"
+
+
+def superglue_from_flax(params: Mapping[str, Any]) -> dict:
+    """Port SuperGlue state dict (fp32 CPU tensors) of the JAX SuperGlue's
+    parameter tree (nested or flat, with or without the "params" level)."""
+    out = {}
+    for path, leaf in _flatten(params).items():
+        path = path[len("params/"):] if path.startswith("params/") else path
+        arr = np.asarray(leaf, dtype=np.float32)
+        if path.endswith("/kernel"):
+            arr = arr.T  # (in, out) -> nn.Linear's (out, in)
+        out[_superglue_key(path)] = torch.from_numpy(np.array(arr, order="C"))
+    return out
+
+
 def load_hermetic(path: str | Path = HERMETIC, device: Any = "cuda") -> dict:
     """The committed SuperPoint-open + LightGlue weights as a two-view
     pipeline state dict on `device`."""
@@ -127,4 +166,5 @@ def load_hermetic(path: str | Path = HERMETIC, device: Any = "cuda") -> dict:
     return {k: v.to(device) for k, v in params_from_jax(tree).items()}
 
 
-__all__ = ["HERMETIC", "params_from_jax", "params_to_jax", "port_key", "load_hermetic"]
+__all__ = ["HERMETIC", "params_from_jax", "params_to_jax", "port_key", "superglue_from_flax",
+           "load_hermetic"]

@@ -24,6 +24,10 @@ struct dim3 {
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };

@@ -81,7 +81,7 @@ def test_self_attention_forward_and_backward(nq, nk, kind):
         _close(grad, rg, BWD)
     # ... and against torch.autograd of the plain forward
     aq, ak, av = _t(q, True), _t(k, True), _t(v, True)
-    plain.masked_attention(aq, ak, av, tm(mq), tm(mk), H, (D // H) ** -0.5).backward(_t(g))
+    plain.masked_attention_packed(aq, ak, av, tm(mq), tm(mk), H, (D // H) ** -0.5).backward(_t(g))
     for grad, auto in zip((tq.grad, tk.grad, tv.grad), (aq.grad, ak.grad, av.grad)):
         _close(grad, auto.numpy(), BWD)
         assert torch.isfinite(auto).all()

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from gluefactory_tpu_torch.ops import attention as plain
+from gluefactory_tpu_torch.ops import block0_conv as b0
 from gluefactory_tpu_torch.ops import fused_attention as fa
 from gluefactory_tpu_torch.ops import lightglue_block as lb
 from gluefactory_tpu_torch.ops import log_assignment as la
@@ -100,12 +101,12 @@ def test_attention_packed_matches_plain(gen, dtype, masked):
     out.backward(do)
     assert (fa.fused_attention_packed.launches, fa.fused_attention_backward.launches) == (
         before[0] + 1, before[1] + 1)
-    _close(out, plain.masked_attention(q, k, v, mq, mk, 4, 0.125), dtype)
+    _close(out, plain.masked_attention_packed(q, k, v, mq, mk, 4, 0.125), dtype)
     for leaf, ref in zip(leaves, plain.attention_backward(q, k, v, mq, mk, do, 4, 0.125)):
         _close(leaf.grad, ref, dtype)
     if dtype == torch.float32:
         auto = [t.clone().requires_grad_() for t in (q, k, v)]
-        plain.masked_attention(*auto, mq, mk, 4, 0.125).backward(do)
+        plain.masked_attention_packed(*auto, mq, mk, 4, 0.125).backward(do)
         for leaf, ref in zip(leaves, auto):
             _close(leaf.grad, ref.grad, dtype)
 
@@ -137,6 +138,74 @@ def test_cross_attention_matches_plain(gen, form):
         _close(x.grad, y.grad, torch.float32)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_attention_heads_matches_plain(gen, masked):
+    """K7a through the per-head entry point, with its gradients (K7b on the
+    per-head layout) against autograd of the plain version."""
+    b, h, nq, nk = 2, 4, 200, 150
+    q, k, v, do = (_rn(gen, b, h, n, 64) for n in (nq, nk, nk, nq))
+    mq, mk = (_mask(gen, b, nq), _mask(gen, b, nk)) if masked else (None, None)
+    if masked:
+        mk[1] = False
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fa.fused_attention.launches, fa.fused_attention_backward.launches
+    out = plain.masked_attention(*leaves, mq, mk)
+    out.backward(do)
+    assert (fa.fused_attention.launches, fa.fused_attention_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = plain.attention_heads(*auto, mq, mk, 0.125)
+    ref.backward(do)
+    _close(out, ref, torch.float32)
+    if masked:
+        assert float(out.detach().transpose(1, 2)[~mq].abs().max()) == 0.0
+        assert float(out.detach()[1].abs().max()) == 0.0
+    for x, y in zip(leaves, auto):
+        _close(x.grad, y.grad, torch.float32)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cross_attention_heads_matches_plain(gen, masked):
+    """K7c through the per-head entry point: both message sets and the
+    gradients of the shared projection, M != N."""
+    b, h, m, n = 2, 4, 200, 136
+    args = [_rn(gen, b, h, k, 64) for k in (m, n, m, n)]
+    masks = (_mask(gen, b, m), _mask(gen, b, n)) if masked else (None, None)
+    g = (_rn(gen, b, h, m, 64), _rn(gen, b, h, n, 64))
+    a = [t.clone().requires_grad_() for t in args]
+    r = [t.clone().requires_grad_() for t in args]
+    before = fa.fused_cross_attention.launches, fa.fused_attention_backward.launches
+    out = plain.cross_attention_bidirectional(*a, *masks)
+    expect = plain.cross_attention_heads(*r, *masks)
+    torch.autograd.backward(out, g)
+    torch.autograd.backward(expect, g)
+    assert (fa.fused_cross_attention.launches, fa.fused_attention_backward.launches) == (
+        before[0] + 1, before[1] + 2)
+    for o, e in zip(out, expect):
+        _close(o, e, torch.float32)
+    for x, y in zip(a, r):
+        _close(x.grad, y.grad, torch.float32)
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 64, 96), (1, 100, 76), (3, 480, 640)])
+def test_block0_matches_plain(gen, b, h, w):
+    """K8 against its plain version: tile-aligned, ragged and the main shape,
+    with a bright border."""
+    image = torch.rand(b, h, w, 1, generator=gen, device="cuda") * 0.5
+    image[:, :2], image[:, -2:], image[:, :, :2], image[:, :, -2:] = 1.0, 1.0, 1.0, 1.0
+    pos = lambda: torch.rand(64, generator=gen, device="cuda") + 0.5
+    weights = (_rn(gen, 3, 3, 1, 64, scale=0.3), _rn(gen, 64, scale=0.1), pos(),
+               _rn(gen, 64, scale=0.1), _rn(gen, 3, 3, 64, 64, scale=0.05),
+               _rn(gen, 64, scale=0.1), pos(), _rn(gen, 64, scale=0.1))
+    before = b0.block0_fused.launches
+    out = b0.block0_fused(image, *weights)
+    assert b0.block0_fused.launches == before + 1
+    ref = b0.block0_plain(image, *weights)
+    assert out.shape == (b, h // 2, w // 2, 64) and out.dtype == torch.bfloat16
+    _close(out, ref, torch.bfloat16)
+    assert float((out.float() - ref.float()).abs().mean()) < 1e-3
+
+
 def test_wrappers_check_their_inputs(gen):
     x = _rn(gen, 2, 64, D, dtype=torch.float16)
     w = _weights(gen, torch.float16, cross=True)
@@ -144,3 +213,9 @@ def test_wrappers_check_their_inputs(gen):
         lb.fused_cross_block(x, None, *w, masked=False)
     with pytest.raises(ValueError):  # heads of width 32
         fa.fused_attention_packed(*(_rn(gen, 2, 64, 128) for _ in range(3)), num_heads=4)
+    with pytest.raises(ValueError):
+        fa.fused_attention(*(_rn(gen, 2, 4, 64, 32) for _ in range(3)))
+    with pytest.raises(ValueError):  # odd height
+        b0.block0_fused(torch.zeros(1, 31, 32, 1, device="cuda"),
+                        *(torch.zeros(s, device="cuda") for s in (
+                            (3, 3, 1, 64), (64,), (64,), (64,), (3, 3, 64, 64), (64,), (64,), (64,))))

@@ -20,6 +20,7 @@ import torch
 
 from gluefactory_tpu_torch import _ext
 from gluefactory_tpu_torch.ops import attention as plain
+from gluefactory_tpu_torch.ops import block0_conv as b0
 from gluefactory_tpu_torch.ops import fused_attention as fa
 from gluefactory_tpu_torch.ops import lightglue_block as lb
 from gluefactory_tpu_torch.ops import log_assignment as la
@@ -133,7 +134,7 @@ def test_attention_forward_and_backward_kernels_match_plain(libs, dtype, masked)
         mk[1] = False
     lib = libs["attention"]
     out, lse = fa.launch_attention_fwd(lib, None, q, k, v, mq, mk, AH, SCALE)
-    _close(out, plain.masked_attention(q, k, v, mq, mk, AH, SCALE), dtype)
+    _close(out, plain.masked_attention_packed(q, k, v, mq, mk, AH, SCALE), dtype)
     if masked:
         assert float(out[~mq].float().abs().max()) == 0.0
         assert float(out[1].float().abs().max()) == 0.0
@@ -142,7 +143,7 @@ def test_attention_forward_and_backward_kernels_match_plain(libs, dtype, masked)
         _close(g, ref, dtype)
     if dtype == torch.float32:  # and against autograd of the plain forward
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        plain.masked_attention(*leaves, mq, mk, AH, SCALE).backward(do)
+        plain.masked_attention_packed(*leaves, mq, mk, AH, SCALE).backward(do)
         for g, leaf in zip(grads, leaves):
             _close(g, leaf.grad, dtype)
 
@@ -165,3 +166,70 @@ def test_cross_attention_kernels_match_plain(libs, dtype):
     m0, m1 = plain.cross_attention_bidirectional_packed(qk0, qk1, v0, v1, mask0, mask1, AH)
     _close(o0, m0, dtype)
     _close(o1, m1, dtype)
+
+
+# ------------------------------------------------------ the per-head entries
+@pytest.mark.parametrize("dtype,masked", [(torch.float32, True), (torch.float32, False),
+                                          (torch.bfloat16, True)])
+def test_attention_heads_kernels_match_plain(libs, dtype, masked):
+    """K7a and the backward on the per-head layout: Nq != Nk, ragged lengths,
+    one batch element without a valid key."""
+    _, rn, mask = _attn_inputs(dtype, 40 + masked)
+    b, h, nq, nk, dh = 2, 2, 70, 90, 64
+    q, k, v, do = rn(b, h, nq, dh), rn(b, h, nk, dh), rn(b, h, nk, dh), rn(b, h, nq, dh)
+    mq, mk = (mask(b, nq), mask(b, nk)) if masked else (None, None)
+    if masked:
+        mk[1] = False
+    lib = libs["attention"]
+    out, lse = fa.launch_attention_fwd_heads(lib, None, q, k, v, mq, mk, SCALE)
+    _close(out, plain.attention_heads(q, k, v, mq, mk, SCALE), dtype)
+    if masked:
+        assert float(out.transpose(1, 2)[~mq].float().abs().max()) == 0.0
+        assert float(out[1].float().abs().max()) == 0.0
+    grads = fa.launch_attention_bwd(lib, None, q, k, v, out, lse, mq, mk, do, h, SCALE)
+    for g, ref in zip(grads, plain.attention_backward_heads(q, k, v, mq, mk, do, SCALE)):
+        _close(g, ref, dtype)
+    if dtype == torch.float32:  # and against autograd of the plain forward
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        plain.attention_heads(*leaves, mq, mk, SCALE).backward(do)
+        for g, leaf in zip(grads, leaves):
+            _close(g, leaf.grad, dtype)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_cross_attention_heads_kernel_matches_plain(libs, masked):
+    """K7c: both message sets from one launch, M != N on either side of a tile
+    edge."""
+    _, rn, mask = _attn_inputs(torch.float32, 50 + masked)
+    b, h, m, n, dh = 2, 2, 70, 100, 64
+    qk0, v0, qk1, v1 = rn(b, h, m, dh), rn(b, h, m, dh), rn(b, h, n, dh), rn(b, h, n, dh)
+    mask0, mask1 = (mask(b, m), mask(b, n)) if masked else (None, None)
+    o0, o1, _, _ = fa.launch_cross_fwd_heads(libs["attention"], None, qk0, qk1, v0, v1,
+                                             mask0, mask1, SCALE)
+    m0, m1 = plain.cross_attention_heads(qk0, qk1, v0, v1, mask0, mask1)
+    _close(o0, m0, torch.float32)
+    _close(o1, m1, torch.float32)
+
+
+# ----------------------------------------------------- SuperPoint's block 0
+def _block0_weights(gen):
+    rn = lambda *s, scale=1.0: torch.randn(*s, generator=gen) * scale
+    pos = lambda: torch.rand(64, generator=gen) + 0.5
+    return (rn(3, 3, 1, 64, scale=0.3), rn(64, scale=0.1), pos(), rn(64, scale=0.1),
+            rn(3, 3, 64, 64, scale=0.05), rn(64, scale=0.1), pos(), rn(64, scale=0.1))
+
+
+@pytest.mark.parametrize("b,h,w,blocks", [(1, 36, 44, 4), (2, 16, 18, 132)])
+def test_block0_kernel_matches_plain(libs, b, h, w, blocks):
+    """K8 on images whose pooled size is no multiple of the 8 x 8 tile, with a
+    bright border (a halo that is not zeroed at the image edge shows there),
+    a block walking over several tiles."""
+    gen = torch.Generator().manual_seed(h + w)
+    image = torch.rand(b, h, w, 1, generator=gen) * 0.5
+    image[:, :2], image[:, -2:], image[:, :, :2], image[:, :, -2:] = 1.0, 1.0, 1.0, 1.0
+    weights = _block0_weights(gen)
+    out = b0.launch_block0(libs["block0_conv"], None, image, *weights, blocks=blocks)
+    ref = b0.block0_plain(image, *weights)
+    assert out.shape == ref.shape == (b, h // 2, w // 2, 64) and out.dtype == torch.bfloat16
+    _close(out, ref, torch.bfloat16)
+    assert float((out.float() - ref.float()).abs().mean()) < 1e-3

@@ -98,8 +98,7 @@ def test_collect_layers_and_outputs():
     assert int(out["stop_layer"]) == 2
 
 
-@pytest.mark.parametrize("conf", [{"depth_confidence": 0.95}, {"width_confidence": 0.99},
-                                  {"add_scale_ori": True}])
+@pytest.mark.parametrize("conf", [{"add_scale_ori": True}])
 def test_unported_modes_raise(conf):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         get_model("lightglue")(conf, device="cpu")

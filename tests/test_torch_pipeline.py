@@ -59,6 +59,8 @@ def test_pipeline_matches_jax_with_hermetic_weights():
     lambda: get_model("two_view_pipeline")(CONF),
     lambda: get_model("lightglue")(),
     lambda: get_model("superpoint_open")(),
+    lambda: get_model("superpoint_open")({"fused_block0": True}),
+    lambda: get_model("superglue")(),
     lambda: load_hermetic(),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(make, monkeypatch):
@@ -79,6 +81,8 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "gluefactory_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {p.name for p in files}
+    assert {"superglue.py", "block0_conv.py", "fused_attention.py", "lightglue.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
