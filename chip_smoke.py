@@ -9,8 +9,12 @@ adaptive, training) and SuperGlue on one GPU.
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel of gluefactory_tpu_torch/csrc with nvcc (sm_90a);
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes, with its time, the plain version's, a library
-     yardstick's and the bound the work allows;
+     the main path's shapes (the block kernels also at N = 512 and 1000),
+     with its time, the plain version's, a library yardstick's and the bound
+     the work allows; for the blocks also the time of each of their three
+     launches and of the same block as bf16 torch calls. The build log's
+     registers and spills are printed, and the bf16 block kernels must show
+     HMMA (tensor-core) instructions in their SASS;
   4. end to end: the two-view pipeline with the committed weights on a
      synthetic pair warped by a known homography, 480x640 / 1024 keypoints
      at batch 8 (launch counts, finiteness, agreement with the port's plain
@@ -130,33 +134,77 @@ def block_weights(gen, cross):
     return pre + [w(D, D), b(D), w(2 * D, 2 * D), b(2 * D), ln, b(2 * D), w(2 * D, D), b(D)]
 
 
-def check_block(kind, s, n, seed):
-    """Self or cross block: kernel vs plain, masked and unmasked; times."""
+def torch_block(kind, x, cos, sin, mask, w):
+    """The same block as bf16 torch calls (`@`, scaled_dot_product_attention,
+    layer_norm, gelu): a yardstick that the port never calls."""
     import torch
     import torch.nn.functional as F
 
+    from gluefactory_tpu_torch.ops.attention import apply_rotary
+
+    s, n, _ = x.shape
+    heads = lambda t: t.view(s, n, H, DH).transpose(1, 2)
+    if kind == "self":
+        wqkv, bqkv, *tail = w
+        q, k, v = (x @ wqkv + bqkv).split(D, -1)
+        c, sn = cos.repeat(1, 1, H), sin.repeat(1, 1, H)
+        q, k, o = apply_rotary(q, c, sn), apply_rotary(k, c, sn), torch.arange(s, device="cuda")
+    else:
+        wqk, bqk, wv, bv, *tail = w
+        q, v = x @ wqk + bqk, x @ wv + bv
+        o = (torch.arange(s, device="cuda") + s // 2) % s
+        k, v = q[o], v[o]
+    ctx = F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                         attn_mask=mask[o][:, None, None, :])
+    wout, bout, w1, b1, lns, lnb, w2, b2 = tail
+    msg = ctx.transpose(1, 2).reshape(s, n, D) @ wout + bout
+    h = F.gelu(F.layer_norm(torch.cat([x, msg], -1) @ w1 + b1, (2 * D,), lns, lnb, eps=1e-5))
+    return x + (h @ w2 + b2)
+
+
+def check_block(kind, s, n, seed, also=()):
+    """Self or cross block: kernel vs plain, masked and unmasked, at N = n
+    and at each N of `also` (same S); times of the block, of each of its
+    three launches, of the plain version and of two yardsticks."""
+    import torch
+    import torch.nn.functional as F
+
+    from gluefactory_tpu_torch import _ext
     from gluefactory_tpu_torch.ops import lightglue_block as lb
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x, cos, sin, mask = block_inputs(gen, s, n)
     w = block_weights(gen, cross=kind == "cross")
-    if kind == "self":
-        kern = lambda m: lb.fused_self_block(x, cos, sin, mask, *w, masked=m)
-        plain = lambda m: lb.self_block(x, cos, sin, mask, *w, masked=m)
-        other = torch.arange(s, device="cuda")
-    else:
-        kern = lambda m: lb.fused_cross_block(x, mask, *w, masked=m)
-        plain = lambda m: lb.cross_block(x, mask, *w, masked=m)
-        other = (torch.arange(s, device="cuda") + s // 2) % s
     err = 0.0
-    for m in (False, True):
-        out = kern(m)
-        torch.cuda.synchronize()
-        err = max(err, compare(out, plain(m), "bfloat16", f"{kind} block s={s} n={n} masked={m}"))
+    for nn in (*also, n):
+        x, cos, sin, mask = block_inputs(gen, s, nn)
+        if kind == "self":
+            kern = lambda m: lb.fused_self_block(x, cos, sin, mask, *w, masked=m)
+            plain = lambda m: lb.self_block(x, cos, sin, mask, *w, masked=m)
+        else:
+            kern = lambda m: lb.fused_cross_block(x, mask, *w, masked=m)
+            plain = lambda m: lb.cross_block(x, mask, *w, masked=m)
+        for m in (False, True):
+            out = kern(m)
+            torch.cuda.synchronize()
+            err = max(err, compare(out, plain(m), "bfloat16",
+                                   f"{kind} block s={s} n={nn} masked={m}"))
     ms = timed(lambda: kern(True), 10)
     plain_ms = timed(lambda: plain(True), 3, warmup=1)
 
+    # the three launches one by one, on the same inputs
+    lib, stream = _ext.load("lightglue_block"), torch.cuda.current_stream().cuda_stream
+    chain = lb.self_block_steps if kind == "self" else lb.cross_block_steps
+    args = (x, cos, sin, mask) if kind == "self" else (x, mask)
+    steps = chain(lib, stream, *args, *w, H)
+    for step in steps:
+        step()
+    split = [timed(step, 20) for step in steps]
+    torch_ms = timed(lambda: torch_block(kind, x, cos, sin, mask, w), 10)
+
     # yardstick: the attention core as one scaled_dot_product_attention call
+    other = torch.arange(s, device="cuda")
+    if kind == "cross":
+        other = (other + s // 2) % s
     q = torch.randn(s, H, n, DH, generator=gen, device="cuda").bfloat16()
     kv = torch.randn(s, H, n, DH, generator=gen, device="cuda").bfloat16()
     amask = mask[other][:, None, None, :]
@@ -173,8 +221,71 @@ def check_block(kind, s, n, seed):
         wbytes = (2 * D * D + D * D + 4 * D * D + 2 * D * D + 2 * D + D + 6 * D) * 2
         nbytes = 2 * s * n * D * 2 + s * n + wbytes
     bms, by = bound(flops, nbytes, PEAK_BF16)
+    ns = ", ".join(str(k) for k in (*also, n))
+    log(f"[kernel] {kind} block ({s}, {n}, 256) bf16: {ms:.4f} ms, {flops / ms / 1e9:.1f} "
+        f"TFLOP/s; launches proj {split[0]:.4f}, attention {split[1]:.4f}, FFN tail "
+        f"{split[2]:.4f} ms; the block as bf16 torch calls {torch_ms:.4f} ms; held against "
+        f"the plain version at N = {ns}, masked and unmasked")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bms, bound_by=by, tol="atol %g + rtol %g" % TOL["bfloat16"])
+                bound_ms=bms, bound_by=by, tol="atol %g + rtol %g" % TOL["bfloat16"],
+                split_ms=split, torch_ms=torch_ms)
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name for a mangled kernel symbol: the nested names without
+    the anonymous namespace, and <float> for a float instantiation."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, parts = 3, []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        k = int(mangled[i:j])
+        parts.append(mangled[j:j + k])
+        i = j + k
+    name = "::".join(p for p in parts if not p.startswith("_GLOBAL__N"))
+    return name + ("<float>" if mangled[i:i + 2] == "If" else "")
+
+
+def build_report():
+    """Registers and spills of every kernel, from the nvcc logs (-Xptxas -v)."""
+    import re
+
+    from gluefactory_tpu_torch import _ext
+
+    for logf in sorted(_ext.BUILD.glob("*.log")):
+        fn, spill = None, ""
+        for line in logf.read_text().splitlines():
+            if m := re.search(r"Compiling entry function '([^']+)'", line):
+                fn = kernel_name(m.group(1))
+            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+                spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+                log(f"[build] {logf.stem} {fn}: {m.group(1)} registers, {spill}")
+                fn, spill = None, ""
+
+
+def check_tensor_cores():
+    """Fail unless every bf16 kernel of the block library (namespace tc) has
+    HMMA instructions in its SASS."""
+    from gluefactory_tpu_torch import _ext
+
+    cuobjdump = Path(_ext._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_ext._target("lightglue_block"))],
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = kernel_name(line.split("Function :")[1].strip())
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    log("[build] lightglue_block HMMA instructions in the SASS: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(counts.items())))
+    tc = {k: v for k, v in counts.items() if k.startswith("tc::")}
+    if len(tc) != 3 or not all(tc.values()):
+        fail(f"the bf16 block kernels do not all use the tensor cores: {tc}")
 
 
 def check_assignment(b, m, n, seed):
@@ -1174,10 +1285,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _ext.build_all()
     log(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s")
-    for logf in sorted(_ext.BUILD.glob("*.log")):
-        for line in logf.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {logf.stem}: {line.strip()}")
+    build_report()
+    check_tensor_cores()
 
     # 3. kernels against their plain versions at the main path's shapes
     src_blk = "gluefactory_tpu_torch/csrc/lightglue_block.cu"
@@ -1191,7 +1300,8 @@ def main() -> int:
     ]
     kernels = []
     for i, (name, kind_, s, n, replaces, src) in enumerate(rows):
-        r = check_block(kind_, s, n, seed=i)
+        # the compact width of the adaptive path and a ragged N beside the main shape
+        r = check_block(kind_, s, n, seed=i, also=(512, 1000) if n == 1024 else ())
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, **r))
     for i, (b, n) in enumerate(((8, 1024), (4, 2048))):
         r = check_assignment(b, n, n, seed=10 + i)
@@ -1283,9 +1393,13 @@ def main() -> int:
 
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        more = ""
+        if "split_ms" in k:
+            more = (" split proj/attention/ffn " + "/".join(f"{t:.4f}" for t in k["split_ms"])
+                    + f" torch_bf16_ms {k['torch_ms']:.4f}")
         log(f"[kernel] {k['name']}: kernel_ms {k['ms']:.4f} plain_ms {k['plain_ms']:.4f} "
             f"library_ms {lib} bound_ms {k['bound_ms']:.4f} ({k['bound_by']}) "
-            f"launches {k['launches']}")
+            f"launches {k['launches']}{more}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")

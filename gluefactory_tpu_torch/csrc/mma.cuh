@@ -1,0 +1,85 @@
+// Warp-level building blocks of the tensor-core kernels: bf16 mma.sync,
+// ldmatrix and cp.async as inline PTX on the card, and lane shuffles.
+// tests/cuda_emu/cuda_runtime.h defines GF_EMU_WARP and gives the same
+// functions (and __shfl_xor_sync) as stand-ins that exchange fragments
+// through per-warp scratch, so the kernels that call them run on the CPU
+// unchanged. Every lane of a warp must reach each of these calls.
+//
+// Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
+// mma.m16n8k16"), g = lane >> 2, t = lane & 3, each 32-bit register two bf16
+// with the lower column (A, C) or row (B) index in its low half:
+//   A (16 x 16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//                           a3 (g+8, 2t+8..)
+//   B (16 x 8):             b0 (rows 2t..2t+1, col g), b1 (rows 2t+8.., col g)
+//   C, D (16 x 8, fp32):    c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
+#pragma once
+
+#include "common.cuh"
+
+namespace gf {
+
+// two floats rounded to bf16 and packed, `lo` in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+__device__ __forceinline__ float bf16_lo(unsigned v) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(v & 0xffffu)));
+}
+__device__ __forceinline__ float bf16_hi(unsigned v) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(v >> 16)));
+}
+
+#ifndef GF_EMU_WARP
+
+// d += a * b, bf16 inputs, fp32 accumulators
+__device__ __forceinline__ void mma_bf16_m16n8k16(float d[4], const unsigned a[4],
+                                                  const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 contiguous bytes); r[j] receives matrix j's
+// (row g, cols 2t..2t+1), or with `trans` its (rows 2t..2t+1, col g).
+__device__ __forceinline__ void ldsm_x4(unsigned r[4], const void* row) {
+  unsigned addr = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned r[4], const void* row) {
+  unsigned addr = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 16 bytes from device to shared memory, asynchronously; zero-filled when
+// `in` is false (src is then not read, but must be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  unsigned addr = (unsigned)__cvta_generic_to_shared(dst);
+  int bytes = in ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most `n` of this thread's committed groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
+#endif  // GF_EMU_WARP
+
+__device__ __forceinline__ float shfl_xor(float v, int lane_mask) {
+  return __shfl_xor_sync(0xffffffffu, v, lane_mask);
+}
+
+}  // namespace gf

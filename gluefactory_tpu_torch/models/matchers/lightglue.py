@@ -36,8 +36,12 @@ reads one flag pair (stop, fits) on the host a layer. A layer goes through
 the block kernels when both sides have one width that is a multiple of 128
 and at most 1024, else through the unfused layer (the attention kernels of
 ops/fused_attention.py). The exit assignment runs over the active tokens.
-Compaction never drops an active token: where the loop ends before the
-active sets fit, the full-width buffers are kept as they are.
+Where the loop ends (an exit, or the last layer) before every active set
+fits the capacity, the port does what the JAX model's code does
+(gluefactory_tpu/models/matchers/lightglue.py:735-762): only the first C
+active tokens of each set, in their original order, stay active for the
+exit assignment, and the rest are dropped. `width_capacity: -1` keeps every
+active token.
 """
 
 from __future__ import annotations
@@ -100,7 +104,10 @@ class LightGlue(BaseModel):
         "depth_confidence": -1.0,
         "width_confidence": -1.0,
         # compact width of the pruned sets, a fraction of the keypoint count
-        # (or an absolute count); <= 0 keeps pruning mask-only
+        # (or an absolute count); <= 0 keeps pruning mask-only. Where the loop
+        # ends before the active sets fit, only the first C active tokens of
+        # each set reach the exit assignment, as in the JAX model: -1 keeps
+        # every token
         "width_capacity": 0.5,
         "filter_threshold": 0.0,
         "checkpointed": False,  # training: recompute each layer in the backward
@@ -372,7 +379,8 @@ class LightGlue(BaseModel):
         desc1, exit layer, act0, act1, prune0, prune1, first compact layer or
         -1); tokens pruned before
         the compaction keep their stale descriptors, which the masked exit
-        assignment never reads."""
+        assignment never reads. If the loop ends before compacting, the
+        active masks keep only the first C active tokens of each set."""
         conf = self.conf
         n_layers = conf.n_layers
         b, m = act0.shape
@@ -393,11 +401,11 @@ class LightGlue(BaseModel):
         idx, compact = None, -1
         fits = use_compact and bool(fits_flag(a, m))  # masked inputs may fit at once
         take = lambda t, ix: torch.gather(t, 1, ix[..., None].expand(-1, -1, t.shape[-1]))
+        # the first c active slots, original order kept (stable sort)
+        first = lambda t, c: torch.argsort((~t).to(torch.uint8), dim=-1, stable=True)[:, :c]
         i, stop = 0, False
         while i < n_layers and not stop:
             if use_compact and idx is None and fits:
-                # actives first, original order kept (stable sort)
-                first = lambda t, c: torch.argsort((~t).to(torch.uint8), dim=-1, stable=True)[:, :c]
                 idx0, idx1 = first(a[:, :m], c0_cap), first(a[:, m:], c1_cap)
                 idx = torch.cat([idx0, idx1 + m], dim=1)
                 desc0, desc1 = d0, d1  # the first phase's buffers; survivors return here
@@ -448,6 +456,12 @@ class LightGlue(BaseModel):
             put = lambda full, ix, t: full.scatter(1, ix[..., None].expand(-1, -1, t.shape[-1]), t)
             d0, d1 = put(desc0, idx0, d0), put(desc1, idx1, d1)
             a = torch.zeros_like(act).scatter(1, idx, a)
+        elif use_compact:
+            # the loop ended before compacting: the JAX model still gathers the
+            # first C active tokens of each set (lightglue.py:735-762) and only
+            # those reach the exit assignment; no layer ran on compact buffers
+            idx = torch.cat([first(a[:, :m], c0_cap), first(a[:, m:], c1_cap) + m], dim=1)
+            a = torch.zeros_like(act).scatter(1, idx, torch.gather(a, 1, idx))
         return d0, d1, i - 1, a[:, :m], a[:, m:], prune[:, :m], prune[:, m:], compact
 
     # ------------------------------------------------- training: unfused layers

@@ -15,7 +15,8 @@ statistics included.
 
 `fused_self_block` / `fused_cross_block` run the plain version for CPU
 tensors and launch the kernel chain for CUDA tensors; each keeps a count of
-its launches in `.launches`.
+its launches in `.launches`. `self_block_steps` / `cross_block_steps` give
+the chain's three launches one by one (chip_smoke.py times each).
 """
 
 from __future__ import annotations
@@ -98,8 +99,15 @@ def _check(x, tensors, what):
             raise TypeError(f"{what}: weights must have the activation dtype {x.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
+        _check_aligned(t, what)
     if x.shape[-1] != 256:
         raise ValueError(f"{what}: the kernels take D = 256, got {x.shape[-1]}")
+
+
+def _check_aligned(t, what):
+    """The kernels copy rows in 16-byte pieces (cp.async, ldmatrix)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: every tensor must start on a 16-byte boundary")
 
 
 def _check_mask(mask, shape, device, masked, what):
@@ -107,56 +115,92 @@ def _check_mask(mask, shape, device, masked, what):
         return None
     if mask.dtype != torch.bool or tuple(mask.shape) != tuple(shape) or mask.device != device:
         raise ValueError(f"{what}: mask must be a bool {tuple(shape)} tensor on {device}")
-    return mask.contiguous()
+    mask = mask.contiguous()
+    _check_aligned(mask, what)
+    return mask
 
 
-def _ffn_launch(lib, x, ctx, wout, bout, wff1, bff1, lns, lnb, wff2, bff2, dtype, stream):
+def _ffn_step(lib, stream, x, ctx, wout, bout, wff1, bff1, lns, lnb, wff2, bff2):
     out = torch.empty_like(x)
     rows, d = x.shape[0] * x.shape[1], x.shape[2]
-    _ext.check(lib.lg_ffn_tail(
-        _ptr(x), _ptr(ctx), _ptr(wout), _ptr(bout), _ptr(wff1), _ptr(bff1),
-        _ptr(lns), _ptr(lnb), _ptr(wff2), _ptr(bff2), _ptr(out), rows, d, dtype,
-        stream), "lg_ffn_tail")
-    return out
+
+    def run():
+        _ext.check(lib.lg_ffn_tail(
+            _ptr(x), _ptr(ctx), _ptr(wout), _ptr(bout), _ptr(wff1), _ptr(bff1),
+            _ptr(lns), _ptr(lnb), _ptr(wff2), _ptr(bff2), _ptr(out), rows, d,
+            _DTYPES[x.dtype], stream), "lg_ffn_tail")
+        return out
+
+    return run
 
 
-def launch_self_block(lib, stream, x, cos, sin, mask, wqkv, bqkv, wout, bout,
-                      wff1, bff1, lns, lnb, wff2, bff2, num_heads):
-    """Run the self-block chain (proj -> attention -> FFN tail) through `lib`."""
+def _attention_step(lib, stream, q, k, v, mask, num_heads, kv_shift, scale):
+    ctx = torch.empty_like(q)
+    s, n, d = q.shape
+
+    def run():
+        _ext.check(lib.lg_attention(
+            _ptr(q), _ptr(k), _ptr(v), None if mask is None else _ptr(mask), _ptr(ctx),
+            s, n, d, num_heads, kv_shift, scale, _DTYPES[q.dtype], stream), "lg_attention")
+        return ctx
+
+    return run, ctx
+
+
+def self_block_steps(lib, stream, x, cos, sin, mask, wqkv, bqkv, wout, bout,
+                     wff1, bff1, lns, lnb, wff2, bff2, num_heads):
+    """The self-block chain through `lib` as its three launches (proj,
+    attention, FFN tail): functions of no arguments over buffers allocated
+    here, to be called in that order; the last returns the block's output."""
     s, n, d = x.shape
     dh = d // num_heads
-    dtype = _DTYPES[x.dtype]
     q, k, v = (torch.empty_like(x) for _ in range(3))
-    _ext.check(lib.lg_proj(
-        _ptr(x), s * n, d, _ptr(wqkv), _ptr(wqkv, d), _ptr(wqkv, 2 * d), 3 * d,
-        _ptr(bqkv), _ptr(bqkv, d), _ptr(bqkv, 2 * d), _ptr(q), _ptr(k), _ptr(v),
-        d, 3, _ptr(cos), _ptr(sin), dh, 2, dh**-0.5, dtype, stream), "lg_proj")
-    ctx = torch.empty_like(x)
-    _ext.check(lib.lg_attention(
-        _ptr(q), _ptr(k), _ptr(v), None if mask is None else _ptr(mask), _ptr(ctx),
-        s, n, d, num_heads, 0, 1.0, dtype, stream), "lg_attention")
-    return _ffn_launch(lib, x, ctx, wout, bout, wff1, bff1, lns, lnb, wff2, bff2,
-                       dtype, stream)
+
+    def proj():
+        _ext.check(lib.lg_proj(
+            _ptr(x), s * n, d, _ptr(wqkv), _ptr(wqkv, d), _ptr(wqkv, 2 * d), 3 * d,
+            _ptr(bqkv), _ptr(bqkv, d), _ptr(bqkv, 2 * d), _ptr(q), _ptr(k), _ptr(v),
+            d, 3, _ptr(cos), _ptr(sin), dh, 2, dh**-0.5, _DTYPES[x.dtype], stream), "lg_proj")
+
+    attention, ctx = _attention_step(lib, stream, q, k, v, mask, num_heads, 0, 1.0)
+    return proj, attention, _ffn_step(lib, stream, x, ctx, wout, bout, wff1, bff1, lns, lnb,
+                                      wff2, bff2)
 
 
-def launch_cross_block(lib, stream, x, mask, wqk, bqk, wv, bv, wout, bout,
-                       wff1, bff1, lns, lnb, wff2, bff2, num_heads):
-    """Run the cross-block chain (proj -> both attention directions in one
-    launch -> FFN tail) through `lib`."""
+def cross_block_steps(lib, stream, x, mask, wqk, bqk, wv, bv, wout, bout,
+                      wff1, bff1, lns, lnb, wff2, bff2, num_heads):
+    """The cross-block chain as `self_block_steps` gives the self block's
+    (proj, both attention directions in one launch, FFN tail)."""
     s, n, d = x.shape
     dh = d // num_heads
-    dtype = _DTYPES[x.dtype]
     qk, v = torch.empty_like(x), torch.empty_like(x)
-    _ext.check(lib.lg_proj(
-        _ptr(x), s * n, d, _ptr(wqk), _ptr(wv), None, d, _ptr(bqk), _ptr(bv), None,
-        _ptr(qk), _ptr(v), None, d, 2, None, None, dh, 0, 1.0, dtype, stream),
-        "lg_proj")
-    ctx = torch.empty_like(x)
-    _ext.check(lib.lg_attention(
-        _ptr(qk), _ptr(qk), _ptr(v), None if mask is None else _ptr(mask), _ptr(ctx),
-        s, n, d, num_heads, s // 2, dh**-0.5, dtype, stream), "lg_attention")
-    return _ffn_launch(lib, x, ctx, wout, bout, wff1, bff1, lns, lnb, wff2, bff2,
-                       dtype, stream)
+
+    def proj():
+        _ext.check(lib.lg_proj(
+            _ptr(x), s * n, d, _ptr(wqk), _ptr(wv), None, d, _ptr(bqk), _ptr(bv), None,
+            _ptr(qk), _ptr(v), None, d, 2, None, None, dh, 0, 1.0, _DTYPES[x.dtype], stream),
+            "lg_proj")
+
+    attention, ctx = _attention_step(lib, stream, qk, qk, v, mask, num_heads, s // 2,
+                                     dh**-0.5)
+    return proj, attention, _ffn_step(lib, stream, x, ctx, wout, bout, wff1, bff1, lns, lnb,
+                                      wff2, bff2)
+
+
+def _run(steps):
+    return [step() for step in steps][-1]
+
+
+def launch_self_block(lib, stream, *args):
+    """Run the self-block chain (proj -> attention -> FFN tail) through `lib`;
+    the arguments of `self_block_steps`."""
+    return _run(self_block_steps(lib, stream, *args))
+
+
+def launch_cross_block(lib, stream, *args):
+    """Run the cross-block chain through `lib`; the arguments of
+    `cross_block_steps`."""
+    return _run(cross_block_steps(lib, stream, *args))
 
 
 def fused_self_block(

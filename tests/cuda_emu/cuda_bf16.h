@@ -22,3 +22,6 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   v.bits = (uint16_t)((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
   return v;
 }
+
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 v) { return v.bits; }
+inline __nv_bfloat16 __ushort_as_bfloat16(unsigned short u) { return __nv_bfloat16{u}; }

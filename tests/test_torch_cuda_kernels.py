@@ -211,6 +211,10 @@ def test_wrappers_check_their_inputs(gen):
     w = _weights(gen, torch.float16, cross=True)
     with pytest.raises(TypeError):
         lb.fused_cross_block(x, None, *w, masked=False)
+    # two bytes off a 16-byte boundary: the kernels copy rows in 16-byte pieces
+    x = _rn(gen, 2 * 64 * D + 1, dtype=torch.bfloat16)[1:].view(2, 64, D)
+    with pytest.raises(ValueError):
+        lb.fused_cross_block(x, None, *_weights(gen, torch.bfloat16, cross=True), masked=False)
     with pytest.raises(ValueError):  # heads of width 32
         fa.fused_attention_packed(*(_rn(gen, 2, 64, 128) for _ in range(3)), num_heads=4)
     with pytest.raises(ValueError):

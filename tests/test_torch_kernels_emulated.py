@@ -7,7 +7,9 @@ GPU; what it cannot hold is anything the GPU compiler or hardware decides
 (that is chip_smoke.py's job). Small ragged shapes (N not a multiple of the
 64-row tiles) exercise the edges. Tolerances: fp32 within 2e-5 (summation
 order); bf16 within one bf16 ulp at the outputs' magnitude (atol 0.0625 +
-rtol 0.02).
+rtol 0.02). The bf16 block kernels run their tensor-core code (mma.sync,
+ldmatrix, cp.async, lane shuffles) through the warp stand-ins of
+tests/cuda_emu, which one test holds against torch.matmul directly.
 """
 
 import ctypes
@@ -30,6 +32,15 @@ EMU = Path(__file__).resolve().parent / "cuda_emu"
 D = 256
 
 
+CSRC = ROOT / "gluefactory_tpu_torch" / "csrc"
+
+
+def _emu_build(cxx, source, target):
+    cmd = [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-include", "cuda_runtime.h",
+           f"-I{EMU}", f"-I{CSRC}", "-x", "c++", str(source), "-o", str(target), "-lpthread"]
+    return subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True)
+
+
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     cxx = shutil.which("g++")
@@ -39,10 +50,7 @@ def libs(tmp_path_factory):
     procs = {}
     for name in _ext.SIGNATURES:
         target = out / f"lib{name}.so"
-        cmd = [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-include", "cuda_runtime.h",
-               f"-I{EMU}", "-x", "c++", str(ROOT / "gluefactory_tpu_torch" / "csrc" / f"{name}.cu"),
-               "-o", str(target), "-lpthread"]
-        procs[name] = (subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True), target)
+        procs[name] = (_emu_build(cxx, CSRC / f"{name}.cu", target), target)
     loaded = {}
     for name, (proc, target) in procs.items():
         _, err = proc.communicate()
@@ -53,6 +61,29 @@ def libs(tmp_path_factory):
             getattr(lib, fn).restype = ctypes.c_int
         loaded[name] = lib
     return loaded
+
+
+def test_warp_mma_stand_in_matches_matmul(tmp_path):
+    """One warp: A (16 x 16) by ldmatrix, B (16 x 16) by ldmatrix.trans, two
+    mma.sync m16n8k16 and quad row sums by __shfl_xor_sync, against
+    torch.matmul of the same bf16 values in fp32 (products of bf16 are exact
+    in fp32; 1e-5 covers the order of the 16-term sums)."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to build the kernel sources for the CPU")
+    target = tmp_path / "libmma_probe.so"
+    proc = _emu_build(cxx, EMU / "mma_probe.cu", target)
+    assert proc.wait() == 0, proc.stderr.read()
+    lib = ctypes.CDLL(str(target))
+    lib.mma_probe.argtypes = [ctypes.c_void_p] * 4
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn(16, 16, generator=gen).bfloat16()
+    b = torch.randn(16, 16, generator=gen).bfloat16()
+    d, rowsum = torch.zeros(16, 16), torch.zeros(16)
+    assert lib.mma_probe(a.data_ptr(), b.data_ptr(), d.data_ptr(), rowsum.data_ptr()) == 0
+    ref = torch.matmul(a.float(), b.float())
+    torch.testing.assert_close(d, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rowsum, ref.sum(1), atol=1e-4, rtol=1e-5)
 
 
 def _weights(gen, dtype, cross):

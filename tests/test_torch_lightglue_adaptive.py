@@ -10,14 +10,13 @@ kernels). Bars in fp32: `stop_layer`, `prune0`, `prune1` equal, `matches0`
 equal on at least 99% of entries, `log_assignment` within 1e-4 where it is
 compared.
 
-One knowing difference: the JAX model gathers the first C active tokens
-whenever a capacity is set, also when its loop ended (exit, or last layer)
-before every active set fit C, and so drops active tokens there. The port
-compacts only once everything fits, as the JAX package's documentation
-promises ("no token is ever dropped"). Where that case arises, the port is
-held to the JAX model with mask-only pruning (`width_capacity: -1`), and
-one test at the default capacity pins the difference to exactly that
-truncation.
+Where the loop ends (an exit, or the last layer) before every active set
+fits the capacity C, the JAX model's code gathers the first C active tokens
+of each set all the same and drops the rest from the exit assignment,
+though its configuration comment says no token is ever dropped. The port
+reproduces the code's result: at the default `width_capacity` the two are
+held equal in that case too, and with `width_capacity: -1` both keep every
+active token.
 """
 
 import jax
@@ -185,28 +184,44 @@ def test_adaptive_matches_jax(case, conf, tweak, m, n, masked):
             assert (out[f"matches{i}"].numpy()[~data[f"keypoint_mask{i}"]] == -1).all()
 
 
+def _first_c(out, model, m, n):
+    """Per side, the active tokens at the exit (prune count stop + 2) and
+    the first C of them, C the default capacity."""
+    stop = int(out["stop_layer"])
+    sides = []
+    for key, k in (("prune0", m), ("prune1", n)):
+        active = out[key] == stop + 2
+        c = model._resolve_capacity(k)
+        sides.append((active & (torch.cumsum(active, dim=1) <= c), active))
+    return sides
+
+
 @pytest.mark.parametrize("m,n,masked", SHAPES)
 def test_exit_before_the_sets_fit_keeps_every_active_token(m, n, masked):
-    """Exit at layer 0 with pruning on and a capacity set: the active sets are
-    over the capacity, the port keeps its full-width buffers and equals the
-    JAX model with mask-only pruning. (The JAX model with the capacity set
-    truncates the active sets to C there and loses matches.)"""
+    """Exit at layer 0 with pruning on and `width_capacity: -1`: the active
+    sets are over the default capacity, and the port and the JAX model both
+    keep every active token for the exit assignment, so tokens past the first
+    C are matched on both sides."""
     data = _data(5, 2, m, n, masked=masked)
     variables = _init(data, CONFIDENT)
-    conf = {"depth_confidence": 0.95, "width_confidence": 0.8, "width_capacity": 0.5}
+    conf = {"depth_confidence": 0.95, "width_confidence": 0.8, "width_capacity": -1}
     out = _port(conf, variables)(_torch(data))
-    _hold(out, _jax({**conf, "width_capacity": -1}, variables, data), la_atol=1e-4)
-    truncated = _jax(conf, variables, data)
-    assert (truncated["matches0"] >= 0).sum() < int((out["matches0"] >= 0).sum())
+    ref = _jax(conf, variables, data)
+    _hold(out, ref, la_atol=1e-4)
+    assert int(out["stop_layer"]) == 0 and int(out["compact_layer"]) == -1
+    (t0, a0), _ = _first_c(out, _port({**conf, "width_capacity": 0.5}, variables), m, n)
+    assert int(t0.sum()) < int(a0.sum())
+    assert bool((out["matches0"][a0 & ~t0] >= 0).any())
+    assert (ref["matches0"][(a0 & ~t0).numpy()] >= 0).any()
 
 
 @pytest.mark.parametrize("m,n,masked", SHAPES)
-def test_default_capacity_differs_from_jax_only_by_the_truncation(m, n, masked):
-    """The same case at the default `width_capacity` on both sides. The exit
-    layer and the prune counts are equal; the JAX model's exit assignment runs
-    over the first C active tokens of each side only, and equals the port's
-    assignment of the port's own descriptors over those truncated sets. A
-    change to either side's handling of this case shows here."""
+def test_default_capacity_truncates_as_jax_when_the_loop_ends_before_the_sets_fit(m, n, masked):
+    """The same exit at the default `width_capacity` on both sides: the loop
+    ends while the active sets are over C, and the port, like the JAX model
+    (lightglue.py:735-762), keeps only the first C active tokens of each set
+    for the exit assignment. Exit layer, prune counts, matches and the log
+    assignment equal the JAX model's; no token past the first C is matched."""
     data = _data(5, 2, m, n, masked=masked)
     variables = _init(data, CONFIDENT)
     conf = {"depth_confidence": 0.95, "width_confidence": 0.8}
@@ -214,28 +229,12 @@ def test_default_capacity_differs_from_jax_only_by_the_truncation(m, n, masked):
     assert model.conf.width_capacity == 0.5
     out = model(_torch(data))
     ref = _jax(conf, variables, data)
-    stop = int(out["stop_layer"])
-    assert stop == int(ref["stop_layer"]) == 0 and int(out["compact_layer"]) == -1
-    np.testing.assert_array_equal(out["prune0"].numpy(), ref["prune0"])
-    np.testing.assert_array_equal(out["prune1"].numpy(), ref["prune1"])
-
-    def first_c(prune, c):
-        active = prune == stop + 2
-        return active & (torch.cumsum(active, dim=1) <= c), active
-
-    t0, a0 = first_c(out["prune0"], model._resolve_capacity(m))
-    t1, a1 = first_c(out["prune1"], model._resolve_capacity(n))
-    assert int(t0.sum()) < int(a0.sum()) and int(t1.sum()) < int(a1.sum())
-    # every active token the JAX model drops is unmatched there; the port matches some
-    assert (ref["matches0"][(a0 & ~t0).numpy()] == -1).all()
-    assert (ref["matches1"][(a1 & ~t1).numpy()] == -1).all()
-    assert bool((out["matches0"][a0 & ~t0] >= 0).any())
-    with torch.no_grad():
-        scores, m0, m1, _, _ = model._fused_assignment(
-            stop, out["ref_descriptors0"][:, 0], out["ref_descriptors1"][:, 0], t0, t1)
-    assert (m0.numpy() == ref["matches0"]).mean() >= 0.99
-    assert (m1.numpy() == ref["matches1"]).mean() >= 0.99
-    np.testing.assert_allclose(scores.numpy(), ref["log_assignment"], atol=1e-4)
+    _hold(out, ref, la_atol=1e-4)
+    assert int(out["stop_layer"]) == 0 and int(out["compact_layer"]) == -1
+    for i, (kept, active) in enumerate(_first_c(out, model, m, n)):
+        assert int(kept.sum()) < int(active.sum())
+        assert bool((out[f"matches{i}"][active & ~kept] == -1).all())
+        assert bool((out[f"matches{i}"][kept] >= 0).any())
 
 
 def test_adaptive_through_the_block_ops_matches_jax():
@@ -301,8 +300,7 @@ def test_adaptive_pipeline_matches_jax_with_hermetic_weights():
     size = np.asarray([[320.0, 240.0]], np.float32)
     jdata = {v: {"image": jnp.asarray(i), "image_size": jnp.asarray(size)}
              for v, i in (("view0", i0), ("view1", i1))}
-    jconf = {**conf, "matcher": {**conf["matcher"], "width_capacity": -1}}
-    jp = jax_model("two_view_pipeline").from_conf(jconf)
+    jp = jax_model("two_view_pipeline").from_conf(conf)
     variables = jax.tree.map(lambda a: a.astype(jnp.float32), load_npz_params(HERMETIC))
     ref = jax.tree.map(np.asarray, jax.jit(jp.apply)(variables, jdata))
 
