@@ -38,21 +38,36 @@
 //     over the key tiles and owns its dq. Both rebuild
 //     p = exp(scale * q.k - lse) from the saved log-sum-exp, then
 //     dv = p^T do, dp = do v^T, ds = p (dp - delta) scale, dq = ds k,
-//     dk = ds^T q. It takes separate query and key sets and masks, because
-//     the cross backward calls it once a direction.
+//     dk = ds^T q (seven products for five: sim and dp are built in both).
+//     It takes separate query and key sets and masks, because the cross
+//     backward calls it once a direction. Two calls on the same inputs give
+//     bit-identical gradients.
 //
 // Bound on the H100: at S = 64, N = 512, D = 256 the forward does 17 GFLOP
 // on 134 MB of fp32 I/O and the backward 43 GFLOP on 235 MB: both are
-// compute-bound against the fp32 rate (their inputs are fp32 in training).
-// This first version computes in fp32 FMA on 4x4 register micro-tiles over
-// 64x64 shared-memory tiles; tensor-core tiles are later work.
+// compute-bound (their inputs are fp32 in training). The forwards compute in
+// fp32 FMA on 4x4 register micro-tiles over 64x64 shared-memory tiles
+// (at most 67 TFLOP/s). The backward runs its products on the tensor cores
+// at fp32 accuracy: mma.sync m16n8k8 on TF32 operands, each fp32 operand
+// split into hi = x rounded to TF32 and lo = x - hi (gf::split_tf32) and each
+// product taken as lo.hi + hi.lo + hi.hi (three passes of the 495 TFLOP/s
+// TF32 rate, about 2^-21 relative error a product against 2^-11 for one
+// pass). A warp keeps sim^T/dp^T (or sim/dp) as C fragments and feeds p and
+// ds to the next product as A fragments in a permuted contraction order, so
+// they never leave registers. The block's own 64 rows stay in shared memory;
+// the loop's tiles of 32 rows are double-buffered by cp.async, which keeps a
+// block at 70 KB and 168 registers a thread: three blocks a multiprocessor.
+// The bf16 instantiation widens its tiles to fp32 and runs the same passes
+// (its inputs have no lo part).
+#include <type_traits>
+
 #include "attention_fwd.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int kThreads = gf::kAttnThreads;
 constexpr int kTile = gf::kAttnTile;
-constexpr int kPad = gf::kAttnPad;
 constexpr int kDh = gf::kAttnDh;
 constexpr int kPacked = 0;  // (S, N, H*64): a head is a channel slice of a row
 constexpr int kHeads = 1;   // (S, H, N, 64): a head is a contiguous slab
@@ -168,219 +183,337 @@ __global__ void __launch_bounds__(kThreads) cross_fwd_heads_kernel(
 }
 
 // ------------------------------------------------------------ backward
-// delta[s, h, i] = sum_d do[s, h, i, d] * o[s, h, i, d]
+// K7b on the tensor cores: 64-row tiles, 4 warps a block, a warp owns 16 rows
+// of its block's tile. The staged tiles are fp32 in shared memory at row
+// stride kBPad = 68 floats (272 bytes: 16-byte aligned rows), so every
+// fragment load below (ldmatrix row-wise; scalar down the columns: rows 2t,
+// columns g) is free of bank conflicts.
+constexpr int kBThreads = 128;
+constexpr int kBPad = 68;
+constexpr int kBTileF = kTile * kBPad;  // floats of the block's own 64-row tile
+constexpr int kStep = 32;  // rows of the loop's tiles (queries for dk/dv, keys for dq)
+constexpr float kLog2e = 1.4426950408889634f;  // p = 2^(sim scale log2(e) - lse log2(e))
+constexpr int kStepF = kStep * kBPad;
+// dk/dv: K, V, two Q and two dO buffers, lse / delta / validity of two query tiles
+constexpr int kDkvSmem = (2 * kBTileF + 4 * kStepF + 6 * kStep) * sizeof(float);
+// dq: Q, dO, two K and two V buffers, validity of two key tiles
+constexpr int kDqSmem = (2 * kBTileF + 4 * kStepF + 2 * kStep) * sizeof(float);
+
+// delta[s, h, i] = sum_d do[s, h, i, d] * o[s, h, i, d]: a warp a row, two
+// channels a lane, reduced by shuffles
 template <class T>
 __global__ void __launch_bounds__(kThreads) attn_bwd_delta_kernel(
     const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
     int S, int Nq, Lay lq, int H) {
-  const size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (size_t)S * H * Nq) return;
-  const int i = idx % Nq, h = (idx / Nq) % H, s = idx / ((size_t)Nq * H);
-  const size_t base = s * lq.set + h * lq.head + (size_t)i * lq.row;
-  float acc = 0.f;
-  for (int d = 0; d < kDh; ++d) acc = fmaf(gf::to_f(o[base + d]), gf::to_f(dout[base + d]), acc);
-  delta[idx] = acc;
+  const size_t row = (size_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= (size_t)S * H * Nq) return;  // the whole warp
+  const int lane = threadIdx.x % 32;
+  const int i = row % Nq, h = (row / Nq) % H, s = row / ((size_t)Nq * H);
+  const size_t at = s * lq.set + h * lq.head + (size_t)i * lq.row + 2 * lane;
+  float acc = gf::to_f(o[at]) * gf::to_f(dout[at]);
+  acc = fmaf(gf::to_f(o[at + 1]), gf::to_f(dout[at + 1]), acc);
+  for (int m = 16; m > 0; m >>= 1) acc += gf::shfl_xor(acc, m);
+  if (lane == 0) delta[row] = acc;
 }
 
-// Five 64 x kPad tiles and three 64-vectors.
-constexpr int kBwdSmem = (5 * kTile * kPad + 3 * kTile) * sizeof(float);
-
-// Loads rows [r0, r0 + 64) of one head (row stride ld) into dst[r][d] (row-major).
-template <class T>
-__device__ __forceinline__ void load_rows(float (*dst)[kPad], const T* __restrict__ src,
-                                          int r0, int n, int ld) {
-  for (int e = 0; e < kTile * kDh / kThreads; ++e) {
-    int idx = threadIdx.x + e * kThreads;
-    int r = idx / kDh, d = idx % kDh;
-    dst[r][d] = r0 + r < n ? gf::to_f(src[(size_t)(r0 + r) * ld + d]) : 0.f;
+// Rows [r0, r0 + rows) of one head (row stride ld) into dst[r][0..64) at
+// row stride kBPad, in fp32; rows from n on are zero. fp32 goes by cp.async
+// (the caller commits and waits), bf16 by loads that convert.
+template <int rows, class T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, int r0, int n,
+                                           int ld) {
+  if constexpr (std::is_same<T, float>::value) {
+    for (int e = threadIdx.x; e < rows * kDh / 4; e += kBThreads) {
+      const int r = e / (kDh / 4), c = e % (kDh / 4) * 4;
+      const bool in = r0 + r < n;
+      gf::cp_async16(dst + r * kBPad + c, in ? src + (size_t)(r0 + r) * ld + c : src, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * kDh; e += kBThreads) {
+      const int r = e / kDh, d = e % kDh;
+      dst[r * kBPad + d] = r0 + r < n ? gf::to_f(src[(size_t)(r0 + r) * ld + d]) : 0.f;
+    }
   }
 }
 
-// The same rows transposed, dst[d][r].
-template <class T>
-__device__ __forceinline__ void load_rows_t(float (*dst)[kPad], const T* __restrict__ src,
-                                            int r0, int n, int ld) {
-  for (int e = 0; e < kTile * kDh / kThreads; ++e) {
-    int idx = threadIdx.x + e * kThreads;
-    int r = idx / kDh, d = idx % kDh;
-    dst[d][r] = r0 + r < n ? gf::to_f(src[(size_t)(r0 + r) * ld + d]) : 0.f;
-  }
+// Fragments of one m16n8k8 step, each element split into TF32 hi and lo.
+// Row-wise fragments come by ldmatrix: an fp32 element is a pair of b16
+// halves, so an 8 x 8 b16 matrix is 8 rows x 4 floats and lane (g, t) gets
+// the float at (row g, column t).
+// A(r, k) = tile[m0 + r][k0 + k]
+__device__ __forceinline__ void frag_a(unsigned hi[4], unsigned lo[4], const float* tile, int m0,
+                                       int k0) {
+  const int l = threadIdx.x % 32;
+  unsigned r[4];
+  gf::ldsm_x4(r, tile + (m0 + l / 8 % 2 * 8 + l % 8) * kBPad + k0 + l / 16 * 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) gf::split_tf32(__uint_as_float(r[i]), hi[i], lo[i]);
+}
+// B of two n8 tiles, B(k, n) = tile[n0 + n][k0 + k] for n < 16 (the
+// contraction runs along the tile's rows): [0..1] the tile at n0, [2..3] n0 + 8
+__device__ __forceinline__ void frag_b_rows(unsigned hi[4], unsigned lo[4], const float* tile,
+                                            int n0, int k0) {
+  const int l = threadIdx.x % 32;
+  unsigned r[4];
+  gf::ldsm_x4(r, tile + (n0 + l / 16 * 8 + l % 8) * kBPad + k0 + l / 8 % 2 * 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) gf::split_tf32(__uint_as_float(r[i]), hi[i], lo[i]);
+}
+// B(k, n) = tile[k0 + k][n0 + n], contraction down the tile's columns, in
+// the permuted order of frag_c: k = t is row 2t, k = t + 4 row 2t + 1
+__device__ __forceinline__ void frag_b_cols(unsigned hi[2], unsigned lo[2], const float* tile,
+                                            int k0, int n0) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const float* p = tile + (k0 + 2 * t) * kBPad + n0 + g;
+  gf::split_tf32(p[0], hi[0], lo[0]);
+  gf::split_tf32(p[kBPad], hi[1], lo[1]);
+}
+// The A fragment of the 16 x 8 block held as the C fragment c (columns
+// 2t, 2t + 1 of rows g, g + 8), in the permuted order: no data moves
+__device__ __forceinline__ void frag_c(unsigned hi[4], unsigned lo[4], const float c[4]) {
+  gf::split_tf32(c[0], hi[0], lo[0]);
+  gf::split_tf32(c[2], hi[1], lo[1]);
+  gf::split_tf32(c[1], hi[2], lo[2]);
+  gf::split_tf32(c[3], hi[3], lo[3]);
 }
 
-// acc[r][c] += sum_t A[t][ty*4 + r] * B[t][tx*4 + c] over the 64 rows t.
-__device__ __forceinline__ void mma_tn(float acc[4][4], float (*A)[kPad],
-                                       float (*B)[kPad], int ty, int tx) {
-#pragma unroll 8
-  for (int t = 0; t < kTile; ++t) {
-    float a[4], b[4];
-    for (int r = 0; r < 4; ++r) a[r] = A[t][ty * 4 + r];
-    for (int c = 0; c < 4; ++c) b[c] = B[t][tx * 4 + c];
-    for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-  }
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-
-// x[r][c] += sum_d A[ty*4 + r][d] * Bx[d][tx*4 + c], and the same for y with
-// (Ay, By): the two 64-deep products that share their loop (sim and dp).
-__device__ __forceinline__ void mma_nt2(float x[4][4], float y[4][4],
-                                        float (*Ax)[kPad], float (*Bx)[kPad],
-                                        float (*Ay)[kPad], float (*By)[kPad],
-                                        int ty, int tx) {
-#pragma unroll 4
-  for (int d = 0; d < kDh; ++d) {
-    float ax[4], bx[4], ay[4], by[4];
-    for (int r = 0; r < 4; ++r) { ax[r] = Ax[ty * 4 + r][d]; ay[r] = Ay[ty * 4 + r][d]; }
-    for (int c = 0; c < 4; ++c) { bx[c] = Bx[d][tx * 4 + c]; by[c] = By[d][tx * 4 + c]; }
-    for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c) {
-        x[r][c] = fmaf(ax[r], bx[c], x[r][c]);
-        y[r][c] = fmaf(ay[r], by[c], y[r][c]);
-      }
-  }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<unsigned*>(p) = gf::pack_bf16(a, b);
 }
 
 // grid (ceil(Nk / 64), H, S). The block owns key tile j0 and its dk, dv; it
-// loops over the query tiles. Threads hold sim/dp as (query ty, key tx) and
-// dk/dv as (key ty, channel tx).
+// loops over tiles of kStep queries, the next one's Q and dO in flight while
+// this one's run. A warp holds sim^T and dp^T of its 16 keys against the
+// tile's queries as C fragments, turns them into p^T and ds^T in place and
+// feeds them as the A operand of dv += p^T do and dk += ds^T q.
 template <class T>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dkv_kernel(
+__global__ void __launch_bounds__(kBThreads) attn_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const unsigned char* __restrict__ mq,
     const unsigned char* __restrict__ mk, T* __restrict__ dk, T* __restrict__ dv,
     int Nq, int Nk, Lay lq, Lay lk, float scale) {
   GF_DYN_SMEM(float, smem);
-  float(*KsT)[kPad] = reinterpret_cast<float(*)[kPad]>(smem);                     // [d][j]
-  float(*VsT)[kPad] = reinterpret_cast<float(*)[kPad]>(smem + kTile * kPad);      // [d][j]
-  float(*Qs)[kPad] = reinterpret_cast<float(*)[kPad]>(smem + 2 * kTile * kPad);   // [i][d]
-  float(*dOs)[kPad] = reinterpret_cast<float(*)[kPad]>(smem + 3 * kTile * kPad);  // [i][d]
-  float(*Ps)[kPad] = reinterpret_cast<float(*)[kPad]>(smem + 4 * kTile * kPad);   // [i][j]
-  float* rowl = smem + 5 * kTile * kPad;  // lse of the query rows
-  float* rowd = rowl + kTile;             // delta of the query rows
-  float* rowv = rowd + kTile;             // validity of the query rows
+  float* Ks = smem;                  // [j][d]
+  float* Vs = Ks + kBTileF;          // [j][d]
+  float* Qs = Vs + kBTileF;          // [2][i][d]
+  float* dOs = Qs + 2 * kStepF;      // [2][i][d]
+  float* rows = dOs + 2 * kStepF;    // [2][lse log2(e), delta, validity][i]
 
   const int s = blockIdx.z, h = blockIdx.y, H = gridDim.y, j0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, m0 = tid / 32 * 16, g = tid % 32 / 4, t = tid % 4;
   const size_t qb = s * lq.set + h * lq.head, kb = s * lk.set + h * lk.head;
   const size_t rb = ((size_t)s * H + h) * Nq;
 
-  load_rows_t<T>(KsT, k + kb, j0, Nk, lk.row);
-  load_rows_t<T>(VsT, v + kb, j0, Nk, lk.row);
-  bool kv[4];
-  for (int c = 0; c < 4; ++c) {
-    int gj = j0 + tx * 4 + c;
-    kv[c] = gj < Nk && (mk == nullptr || mk[(size_t)s * Nk + gj]);
+  auto stage_queries = [&](int it) {
+    const int buf = it & 1, i0 = it * kStep;
+    stage_rows<kStep, T>(Qs + buf * kStepF, q + qb, i0, Nq, lq.row);
+    stage_rows<kStep, T>(dOs + buf * kStepF, dout + qb, i0, Nq, lq.row);
+    if (tid < kStep) {
+      const int gi = i0 + tid;
+      const bool in = gi < Nq;
+      float* r = rows + buf * 3 * kStep;
+      r[tid] = in ? lse[rb + gi] * kLog2e : 0.f;
+      r[kStep + tid] = in ? delta[rb + gi] : 0.f;
+      r[2 * kStep + tid] = (in && (mq == nullptr || mq[(size_t)s * Nq + gi])) ? 1.f : 0.f;
+    }
+    gf::cp_async_commit();
+  };
+  stage_rows<kTile, T>(Ks, k + kb, j0, Nk, lk.row);
+  stage_rows<kTile, T>(Vs, v + kb, j0, Nk, lk.row);
+  stage_queries(0);
+  bool kv[2];
+  for (int r = 0; r < 2; ++r) {
+    const int gj = j0 + m0 + g + 8 * r;
+    kv[r] = gj < Nk && (mk == nullptr || mk[(size_t)s * Nk + gj]);
   }
 
-  float dka[4][4] = {}, dva[4][4] = {};
-  for (int i0 = 0; i0 < Nq; i0 += kTile) {
-    __syncthreads();
-    load_rows<T>(Qs, q + qb, i0, Nq, lq.row);
-    load_rows<T>(dOs, dout + qb, i0, Nq, lq.row);
-    if (tid < kTile) {
-      int gi = i0 + tid;
-      bool in = gi < Nq;
-      rowl[tid] = in ? lse[rb + gi] : 0.f;
-      rowd[tid] = in ? delta[rb + gi] : 0.f;
-      rowv[tid] = (in && (mq == nullptr || mq[(size_t)s * Nq + gi])) ? 1.f : 0.f;
+  float dka[8][4] = {}, dva[8][4] = {};
+  const float scale2 = scale * kLog2e;
+  const int tiles = (Nq + kStep - 1) / kStep;
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {
+      stage_queries(it + 1);  // its buffers were last read before the previous barrier
+      gf::cp_async_wait<1>();
+    } else {
+      gf::cp_async_wait<0>();
     }
     __syncthreads();
+    const float* Qt = Qs + (it & 1) * kStepF;
+    const float* dOt = dOs + (it & 1) * kStepF;
+    const float* rw = rows + (it & 1) * 3 * kStep;
 
-    float sim[4][4] = {}, dp[4][4] = {};
-    mma_nt2(sim, dp, Qs, KsT, dOs, VsT, ty, tx);
-    for (int r = 0; r < 4; ++r) {
-      int i = ty * 4 + r;
-      bool qv = rowv[i] > 0.f;
-      for (int c = 0; c < 4; ++c) {
-        float p = (qv && kv[c]) ? expf(sim[r][c] * scale - rowl[i]) : 0.f;
-        Ps[i][tx * 4 + c] = p;
-        sim[r][c] = p * (dp[r][c] - rowd[i]) * scale;  // ds
+    // sim^T, dp^T: (key m0 + g (+8), query 8 nt + 2t (+1))
+    float st[kStep / 8][4] = {}, dpt[kStep / 8][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      unsigned kh[4], kl[4], vh[4], vl[4];
+      frag_a(kh, kl, Ks, m0, 8 * ks);
+      frag_a(vh, vl, Vs, m0, 8 * ks);
+#pragma unroll
+      for (int nt = 0; nt < kStep / 8; nt += 2) {
+        unsigned bh[4], bl[4];
+        frag_b_rows(bh, bl, Qt, 8 * nt, 8 * ks);
+        gf::mma_tf32x3(st[nt], kh, kl, bh, bl);
+        gf::mma_tf32x3(st[nt + 1], kh, kl, bh + 2, bl + 2);
+        frag_b_rows(bh, bl, dOt, 8 * nt, 8 * ks);
+        gf::mma_tf32x3(dpt[nt], vh, vl, bh, bl);
+        gf::mma_tf32x3(dpt[nt + 1], vh, vl, bh + 2, bl + 2);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kStep / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * nt + 2 * t + (e & 1);
+        const bool ok = kv[e >> 1] && rw[2 * kStep + i] > 0.f;
+        const float p = ok ? exp2f(fmaf(st[nt][e], scale2, -rw[i])) : 0.f;
+        st[nt][e] = p;
+        dpt[nt][e] = p * (dpt[nt][e] - rw[kStep + i]) * scale;  // ds
+      }
+#pragma unroll
+    for (int kk = 0; kk < kStep / 8; ++kk) {
+      unsigned ph[4], pl[4], sh[4], sl[4];
+      frag_c(ph, pl, st[kk]);
+      frag_c(sh, sl, dpt[kk]);
+#pragma unroll
+      for (int nd = 0; nd < 8; ++nd) {
+        unsigned bh[2], bl[2];
+        frag_b_cols(bh, bl, dOt, 8 * kk, 8 * nd);
+        gf::mma_tf32x3(dva[nd], ph, pl, bh, bl);  // dv[j][d] += sum_i p[i][j] do[i][d]
+        frag_b_cols(bh, bl, Qt, 8 * kk, 8 * nd);
+        gf::mma_tf32x3(dka[nd], sh, sl, bh, bl);  // dk[j][d] += sum_i ds[i][j] q[i][d]
       }
     }
     __syncthreads();
-    mma_tn(dva, Ps, dOs, ty, tx);  // dv[j][d] += sum_i p[i][j] do[i][d]
-    __syncthreads();
-    for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c) Ps[ty * 4 + r][tx * 4 + c] = sim[r][c];
-    __syncthreads();
-    mma_tn(dka, Ps, Qs, ty, tx);  // dk[j][d] += sum_i ds[i][j] q[i][d]
   }
 
-  for (int r = 0; r < 4; ++r) {
-    int gj = j0 + ty * 4 + r;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int gj = j0 + m0 + g + 8 * r;
     if (gj >= Nk) continue;
-    for (int c = 0; c < 4; ++c) {
-      size_t at = kb + (size_t)gj * lk.row + tx * 4 + c;
-      dk[at] = gf::from_f<T>(dka[r][c]);
-      dv[at] = gf::from_f<T>(dva[r][c]);
+    const size_t at = kb + (size_t)gj * lk.row + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd) {
+      store2(dk + at + 8 * nd, dka[nd][2 * r], dka[nd][2 * r + 1]);
+      store2(dv + at + 8 * nd, dva[nd][2 * r], dva[nd][2 * r + 1]);
     }
   }
 }
 
 // grid (ceil(Nq / 64), H, S). The block owns query tile i0 and its dq; it
-// loops over the key tiles. Threads hold sim^T/dp^T as (key ty, query tx)
-// and dq as (query ty, channel tx).
+// loops over tiles of kStep keys, the next one's K and V in flight. A warp
+// holds sim and dp of its 16 queries against the tile's keys, turns them into
+// ds in place and feeds it as the A operand of dq += ds k.
 template <class T>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(
+__global__ void __launch_bounds__(kBThreads) attn_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const unsigned char* __restrict__ mq,
     const unsigned char* __restrict__ mk, T* __restrict__ dq,
     int Nq, int Nk, Lay lq, Lay lk, float scale) {
   GF_DYN_SMEM(float, smem);
-  float(*QsT)[kPad] = reinterpret_cast<float(*)[kPad]>(smem);                      // [d][i]
-  float(*dOsT)[kPad] = reinterpret_cast<float(*)[kPad]>(smem + kTile * kPad);      // [d][i]
-  float(*Ks)[kPad] = reinterpret_cast<float(*)[kPad]>(smem + 2 * kTile * kPad);    // [j][d]
-  float(*Vs)[kPad] = reinterpret_cast<float(*)[kPad]>(smem + 3 * kTile * kPad);    // [j][d]
-  float(*Ss)[kPad] = reinterpret_cast<float(*)[kPad]>(smem + 4 * kTile * kPad);    // [j][i]
-  float* kvalid = smem + 5 * kTile * kPad;
+  float* Qs = smem;                 // [i][d]
+  float* dOs = Qs + kBTileF;        // [i][d]
+  float* Ks = dOs + kBTileF;        // [2][j][d]
+  float* Vs = Ks + 2 * kStepF;      // [2][j][d]
+  float* kval = Vs + 2 * kStepF;    // [2][j]
 
   const int s = blockIdx.z, h = blockIdx.y, H = gridDim.y, i0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, m0 = tid / 32 * 16, g = tid % 32 / 4, t = tid % 4;
   const size_t qb = s * lq.set + h * lq.head, kb = s * lk.set + h * lk.head;
   const size_t rb = ((size_t)s * H + h) * Nq;
 
-  load_rows_t<T>(QsT, q + qb, i0, Nq, lq.row);
-  load_rows_t<T>(dOsT, dout + qb, i0, Nq, lq.row);
-  bool qv[4];
-  float rl[4], rd[4];
-  for (int c = 0; c < 4; ++c) {
-    int gi = i0 + tx * 4 + c;
-    bool in = gi < Nq;
-    qv[c] = in && (mq == nullptr || mq[(size_t)s * Nq + gi]);
-    rl[c] = in ? lse[rb + gi] : 0.f;
-    rd[c] = in ? delta[rb + gi] : 0.f;
+  auto stage_keys = [&](int it) {
+    const int buf = it & 1, j0 = it * kStep;
+    stage_rows<kStep, T>(Ks + buf * kStepF, k + kb, j0, Nk, lk.row);
+    stage_rows<kStep, T>(Vs + buf * kStepF, v + kb, j0, Nk, lk.row);
+    if (tid < kStep) {
+      const int gj = j0 + tid;
+      kval[buf * kStep + tid] =
+          (gj < Nk && (mk == nullptr || mk[(size_t)s * Nk + gj])) ? 1.f : 0.f;
+    }
+    gf::cp_async_commit();
+  };
+  stage_rows<kTile, T>(Qs, q + qb, i0, Nq, lq.row);
+  stage_rows<kTile, T>(dOs, dout + qb, i0, Nq, lq.row);
+  stage_keys(0);
+  bool qv[2];
+  float rl[2], rd[2];
+  for (int r = 0; r < 2; ++r) {
+    const int gi = i0 + m0 + g + 8 * r;
+    const bool in = gi < Nq;
+    qv[r] = in && (mq == nullptr || mq[(size_t)s * Nq + gi]);
+    rl[r] = in ? lse[rb + gi] * kLog2e : 0.f;
+    rd[r] = in ? delta[rb + gi] : 0.f;
   }
 
-  float dqa[4][4] = {};
-  for (int j0 = 0; j0 < Nk; j0 += kTile) {
-    __syncthreads();
-    load_rows<T>(Ks, k + kb, j0, Nk, lk.row);
-    load_rows<T>(Vs, v + kb, j0, Nk, lk.row);
-    if (tid < kTile) {
-      int gj = j0 + tid;
-      kvalid[tid] = (gj < Nk && (mk == nullptr || mk[(size_t)s * Nk + gj])) ? 1.f : 0.f;
+  float dqa[8][4] = {};
+  const float scale2 = scale * kLog2e;
+  const int tiles = (Nk + kStep - 1) / kStep;
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {
+      stage_keys(it + 1);
+      gf::cp_async_wait<1>();
+    } else {
+      gf::cp_async_wait<0>();
     }
     __syncthreads();
+    const float* Kt = Ks + (it & 1) * kStepF;
+    const float* Vt = Vs + (it & 1) * kStepF;
+    const float* kvt = kval + (it & 1) * kStep;
 
-    float sim[4][4] = {}, dp[4][4] = {};
-    mma_nt2(sim, dp, Ks, QsT, Vs, dOsT, ty, tx);
-    for (int r = 0; r < 4; ++r) {
-      bool kvr = kvalid[ty * 4 + r] > 0.f;
-      for (int c = 0; c < 4; ++c) {
-        float p = (kvr && qv[c]) ? expf(sim[r][c] * scale - rl[c]) : 0.f;
-        Ss[ty * 4 + r][tx * 4 + c] = p * (dp[r][c] - rd[c]) * scale;
+    // sim, dp: (query m0 + g (+8), key 8 nt + 2t (+1))
+    float sa[kStep / 8][4] = {}, dpa[kStep / 8][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      unsigned qh[4], ql[4], oh[4], ol[4];
+      frag_a(qh, ql, Qs, m0, 8 * ks);
+      frag_a(oh, ol, dOs, m0, 8 * ks);
+#pragma unroll
+      for (int nt = 0; nt < kStep / 8; nt += 2) {
+        unsigned bh[4], bl[4];
+        frag_b_rows(bh, bl, Kt, 8 * nt, 8 * ks);
+        gf::mma_tf32x3(sa[nt], qh, ql, bh, bl);
+        gf::mma_tf32x3(sa[nt + 1], qh, ql, bh + 2, bl + 2);
+        frag_b_rows(bh, bl, Vt, 8 * nt, 8 * ks);
+        gf::mma_tf32x3(dpa[nt], oh, ol, bh, bl);
+        gf::mma_tf32x3(dpa[nt + 1], oh, ol, bh + 2, bl + 2);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kStep / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * nt + 2 * t + (e & 1), r = e >> 1;
+        const bool ok = qv[r] && kvt[j] > 0.f;
+        const float p = ok ? exp2f(fmaf(sa[nt][e], scale2, -rl[r])) : 0.f;
+        sa[nt][e] = p * (dpa[nt][e] - rd[r]) * scale;  // ds
+      }
+#pragma unroll
+    for (int kk = 0; kk < kStep / 8; ++kk) {
+      unsigned sh[4], sl[4];
+      frag_c(sh, sl, sa[kk]);
+#pragma unroll
+      for (int nd = 0; nd < 8; ++nd) {
+        unsigned bh[2], bl[2];
+        frag_b_cols(bh, bl, Kt, 8 * kk, 8 * nd);
+        gf::mma_tf32x3(dqa[nd], sh, sl, bh, bl);  // dq[i][d] += sum_j ds[i][j] k[j][d]
       }
     }
     __syncthreads();
-    mma_tn(dqa, Ss, Ks, ty, tx);  // dq[i][d] += sum_j ds[j][i] k[j][d]
   }
 
-  for (int r = 0; r < 4; ++r) {
-    int gi = i0 + ty * 4 + r;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int gi = i0 + m0 + g + 8 * r;
     if (gi >= Nq) continue;
-    for (int c = 0; c < 4; ++c)
-      dq[qb + (size_t)gi * lq.row + tx * 4 + c] = gf::from_f<T>(dqa[r][c]);
+    const size_t at = qb + (size_t)gi * lq.row + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd) store2(dq + at + 8 * nd, dqa[nd][2 * r], dqa[nd][2 * r + 1]);
   }
 }
 
@@ -462,17 +595,17 @@ int launch_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                     cudaStream_t st) {
   if (D != H * kDh || (layout != kPacked && layout != kHeads)) return (int)cudaErrorInvalidValue;
   const Lay lq = make_lay(layout, Nq, D, H), lk = make_lay(layout, Nk, D, H);
-  static cudaError_t attr_kv = gf::allow_smem(attn_bwd_dkv_kernel<T>, kBwdSmem);
-  static cudaError_t attr_q = gf::allow_smem(attn_bwd_dq_kernel<T>, kBwdSmem);
+  static cudaError_t attr_kv = gf::allow_smem(attn_bwd_dkv_kernel<T>, kDkvSmem);
+  static cudaError_t attr_q = gf::allow_smem(attn_bwd_dq_kernel<T>, kDqSmem);
   if (attr_kv != cudaSuccess) return (int)attr_kv;
   if (attr_q != cudaSuccess) return (int)attr_q;
-  const size_t rows = (size_t)S * H * Nq;
-  GF_LAUNCH(attn_bwd_delta_kernel<T>, dim3((unsigned)((rows + kThreads - 1) / kThreads)),
-            kThreads, 0, st, (const T*)o, (const T*)dout, delta, S, Nq, lq, H);
-  GF_LAUNCH(attn_bwd_dkv_kernel<T>, dim3((Nk + kTile - 1) / kTile, H, S), kThreads, kBwdSmem,
+  const size_t rows = (size_t)S * H * Nq, warps = kThreads / 32;
+  GF_LAUNCH(attn_bwd_delta_kernel<T>, dim3((unsigned)((rows + warps - 1) / warps)), kThreads, 0,
+            st, (const T*)o, (const T*)dout, delta, S, Nq, lq, H);
+  GF_LAUNCH(attn_bwd_dkv_kernel<T>, dim3((Nk + kTile - 1) / kTile, H, S), kBThreads, kDkvSmem,
             st, (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
             (const float*)delta, mq, mk, (T*)dk, (T*)dv, Nq, Nk, lq, lk, scale);
-  GF_LAUNCH(attn_bwd_dq_kernel<T>, dim3((Nq + kTile - 1) / kTile, H, S), kThreads, kBwdSmem,
+  GF_LAUNCH(attn_bwd_dq_kernel<T>, dim3((Nq + kTile - 1) / kTile, H, S), kBThreads, kDqSmem,
             st, (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
             (const float*)delta, mq, mk, (T*)dq, Nq, Nk, lq, lk, scale);
   return (int)cudaGetLastError();

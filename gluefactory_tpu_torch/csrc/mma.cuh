@@ -1,5 +1,6 @@
-// Warp-level building blocks of the tensor-core kernels: bf16 mma.sync,
-// ldmatrix and cp.async as inline PTX on the card, and lane shuffles.
+// Warp-level building blocks of the tensor-core kernels: bf16 and TF32
+// mma.sync, ldmatrix and cp.async as inline PTX on the card, and lane
+// shuffles.
 // tests/cuda_emu/cuda_runtime.h defines GF_EMU_WARP and gives the same
 // functions (and __shfl_xor_sync) as stand-ins that exchange fragments
 // through per-warp scratch, so the kernels that call them run on the CPU
@@ -12,6 +13,14 @@
 //                           a3 (g+8, 2t+8..)
 //   B (16 x 8):             b0 (rows 2t..2t+1, col g), b1 (rows 2t+8.., col g)
 //   C, D (16 x 8, fp32):    c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
+// and of mma.m16n8k8 with .tf32 operands (one 32-bit register an element;
+// the hardware reads only a register's top 19 bits):
+//   A (16 x 8, row-major): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//   B (8 x 8):             b0 (row t, col g), b1 (row t+4, col g)
+//   C, D:                  as for m16n8k16.
+// A k8 step's contraction order is free: reading A's column t as column 2t
+// and column t+4 as 2t+1 (and B's rows alike) makes a C fragment an A
+// fragment without moving data between lanes (see mma_tf32x3's callers).
 #pragma once
 
 #include "common.cuh"
@@ -38,6 +47,24 @@ __device__ __forceinline__ void mma_bf16_m16n8k16(float d[4], const unsigned a[4
                                                   const unsigned b[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// as the bits of an fp32 value
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a * b, TF32 inputs, fp32 accumulators
+__device__ __forceinline__ void mma_tf32_m16n8k8(float d[4], const unsigned a[4],
+                                                 const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -77,6 +104,25 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 #endif  // GF_EMU_WARP
+
+// x = hi + lo as two TF32 operands: hi is x rounded to TF32 to nearest, ties
+// away (the value of to_tf32 for finite x, in two integer operations: on the
+// card cvt.rna costs more), lo = x - hi exactly in fp32, of which the tensor
+// core reads the top 19 bits: hi + lo holds x to about 2^-21
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a * b at about fp32 accuracy from three TF32 passes of split_tf32's
+// parts (a_lo b_lo is dropped): the two small terms first, the large one last
+__device__ __forceinline__ void mma_tf32x3(float d[4], const unsigned ahi[4],
+                                           const unsigned alo[4], const unsigned bhi[2],
+                                           const unsigned blo[2]) {
+  mma_tf32_m16n8k8(d, alo, bhi);
+  mma_tf32_m16n8k8(d, ahi, blo);
+  mma_tf32_m16n8k8(d, ahi, bhi);
+}
 
 __device__ __forceinline__ float shfl_xor(float v, int lane_mask) {
   return __shfl_xor_sync(0xffffffffu, v, lane_mask);

@@ -78,6 +78,12 @@ def _c(t):
     return None if t is None else t.contiguous()
 
 
+def _aligned16(t):
+    """t, or a copy that starts on a 16-byte boundary: the backward kernels
+    stage rows in 16-byte cp.async pieces."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -187,6 +193,7 @@ def fused_attention_backward(q, k, v, out, lse, mask_q, mask_k, dout, num_heads:
             return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
         return plain.attention_backward(q, k, v, mask_q, mask_k, dout, num_heads, scale)
     q, k, v, out, dout, lse, mask_q, mask_k = map(_c, (q, k, v, out, dout, lse, mask_q, mask_k))
+    q, k, v, dout = map(_aligned16, (q, k, v, dout))
     if heads:
         _check_heads("fused_attention_backward", (q, k, v, out, dout),
                      ((q, mask_q), (k, mask_k)))

@@ -47,32 +47,36 @@ VARIANTS = {
 }
 
 
-def build(src: str, out: Path) -> dict:
+def build(variants_by_lib: dict, out: Path) -> dict:
+    """Build every variant of each csrc/<name>.cu, all nvcc processes at once,
+    and load them: {name: {label: library}}."""
     from gluefactory_tpu_torch import _ext
 
     procs = {}
-    for i, (name, subs) in enumerate(VARIANTS.items()):
-        s = src
-        for a, b in subs:
-            if a not in s:
-                raise SystemExit(f"variant {name!r}: {a[:60]!r} is not in the source")
-            s = s.replace(a, b)
-        cu = out / f"variant_{i}.cu"
-        cu.write_text(s)
-        so = out / f"libvariant_{i}.so"
-        cmd = [_ext._nvcc(), *_ext.NVCC_FLAGS, f"-I{_ext.CSRC}", "-o", str(so), str(cu)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), so, cu)
-    libs = {}
-    for name, (proc, so, cu) in procs.items():
+    for name, variants in variants_by_lib.items():
+        src = (_ext.CSRC / f"{name}.cu").read_text()
+        for i, (label, subs) in enumerate(variants.items()):
+            s = src
+            for a, b in subs:
+                if a not in s:
+                    raise SystemExit(f"variant {label!r}: {a[:60]!r} is not in {name}.cu")
+                s = s.replace(a, b)
+            cu = out / f"{name}_variant_{i}.cu"
+            cu.write_text(s)
+            so = out / f"lib{name}_variant_{i}.so"
+            cmd = [_ext._nvcc(), *_ext.NVCC_FLAGS, f"-I{_ext.CSRC}", "-o", str(so), str(cu)]
+            procs[name, label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True), so)
+    libs = {name: {} for name in variants_by_lib}
+    for (name, label), (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name!r}:\n{log[-3000:]}")
+            raise SystemExit(f"nvcc failed for {name} {label!r}:\n{log[-3000:]}")
         lib = ctypes.CDLL(str(so))
-        for fn, argtypes in _ext.SIGNATURES["lightglue_block"].items():
+        for fn, argtypes in _ext.SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+        libs[name][label] = lib
     return libs
 
 
@@ -91,7 +95,7 @@ def main() -> int:
     print(f"nvidia-smi: {smi}", flush=True)
     out = _ext.BUILD / "variants"
     out.mkdir(parents=True, exist_ok=True)
-    libs = build((_ext.CSRC / "lightglue_block.cu").read_text(), out)
+    libs = build({"lightglue_block": VARIANTS}, out)["lightglue_block"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     w = cs.block_weights(gen, cross=False)
     stream = torch.cuda.current_stream().cuda_stream

@@ -8,8 +8,14 @@ Tolerances: fp32 within 1e-4 (summation order); bf16 within 0.0625 +
 on a rounding boundary can land one ulp apart and carry on).
 """
 
+import ctypes
+import subprocess
+from pathlib import Path
+
 import pytest
 import torch
+
+from gluefactory_tpu_torch import _ext
 
 from gluefactory_tpu_torch.ops import attention as plain
 from gluefactory_tpu_torch.ops import block0_conv as b0
@@ -185,6 +191,56 @@ def test_cross_attention_heads_matches_plain(gen, masked):
         _close(o, e, torch.float32)
     for x, y in zip(a, r):
         _close(x.grad, y.grad, torch.float32)
+
+
+def test_tf32_split_on_the_card(gen, tmp_path):
+    """The warp probe of tests/cuda_emu built with nvcc: split_tf32's hi
+    part is cvt.rna.tf32.f32's value (ties included), and on the tensor cores
+    the 3-pass split is within 2e-6 of an fp32 matmul where one pass on the
+    raw fp32 registers is not: the card does what the CPU stand-ins model."""
+    probe = Path(__file__).resolve().parent / "cuda_emu" / "mma_probe.cu"
+    so = tmp_path / "libmma_probe.so"
+    cmd = [_ext._nvcc(), *_ext.NVCC_FLAGS, f"-I{_ext.CSRC}", "-o", str(so), str(probe)]
+    done = subprocess.run(cmd, capture_output=True, text=True)
+    assert done.returncode == 0, done.stdout + done.stderr
+    lib = ctypes.CDLL(str(so))
+    lib.tf32_round_probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.mma_probe_tf32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    x = torch.randn(4096, generator=gen, device="cuda") * 100
+    bits = x.view(torch.int32)
+    x[:1024] = ((bits[:1024] & ~0x1FFF) | 0x1000).view(torch.float32)  # ties
+    hi, cvt = (torch.empty(4096, dtype=torch.int32, device="cuda") for _ in range(2))
+    assert lib.tf32_round_probe(x.data_ptr(), hi.data_ptr(), cvt.data_ptr(), 4096) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(hi, cvt)
+    a, b = _rn(gen, 16, 16), _rn(gen, 16, 8)
+    ref = (a.double() @ b.double()).float()
+    for split in (1, 0):
+        d = torch.zeros(16, 8, device="cuda")
+        assert lib.mma_probe_tf32(a.data_ptr(), b.data_ptr(), d.data_ptr(), split) == 0
+        torch.cuda.synchronize()
+        err = float((d - ref).abs().max())
+        assert err < 2e-6 if split else err > 1e-4, (split, err)
+
+
+@pytest.mark.parametrize("heads", [False, True])
+def test_attention_backward_is_deterministic(gen, heads):
+    """K7b has no atomics: two calls on the same inputs give bit-identical
+    gradients, on either layout, with ragged lengths."""
+    s, nq, nk = 3, 200, 150
+    shape = (lambda n: (s, 4, n, 64)) if heads else (lambda n: (s, n, D))
+    q, k, v, do = (_rn(gen, *shape(n)) for n in (nq, nk, nk, nq))
+    mq = torch.rand(s, nq, generator=gen, device="cuda") > 0.2
+    mk = torch.rand(s, nk, generator=gen, device="cuda") > 0.2
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    if heads:
+        out = fa.fused_attention(*leaves, mq, mk)
+    else:
+        out = fa.fused_attention_packed(*leaves, mq, mk, 4)
+    first = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    second = torch.autograd.grad(out, leaves, do)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("b,h,w", [(2, 64, 96), (1, 100, 76), (3, 480, 640)])

@@ -7,9 +7,12 @@ GPU; what it cannot hold is anything the GPU compiler or hardware decides
 (that is chip_smoke.py's job). Small ragged shapes (N not a multiple of the
 64-row tiles) exercise the edges. Tolerances: fp32 within 2e-5 (summation
 order); bf16 within one bf16 ulp at the outputs' magnitude (atol 0.0625 +
-rtol 0.02). The bf16 block kernels run their tensor-core code (mma.sync,
-ldmatrix, cp.async, lane shuffles) through the warp stand-ins of
-tests/cuda_emu, which one test holds against torch.matmul directly.
+rtol 0.02). The bf16 block kernels, block 0 and the attention backward run
+their tensor-core code (bf16 and TF32 mma.sync, ldmatrix, cp.async, lane
+shuffles) through the warp stand-ins of tests/cuda_emu, which two tests hold
+against torch.matmul directly; the TF32 mma reads only a register's top 19
+bits, as the card does, so the backward holds the fp32 bar only through its
+3-pass split.
 """
 
 import ctypes
@@ -84,6 +87,30 @@ def test_warp_mma_stand_in_matches_matmul(tmp_path):
     ref = torch.matmul(a.float(), b.float())
     torch.testing.assert_close(d, ref, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(rowsum, ref.sum(1), atol=1e-4, rtol=1e-5)
+
+
+def test_warp_tf32_mma_stand_in_matches_matmul(tmp_path):
+    """One warp: fp32 A (16 x 16) by B (16 x 8) in two mma.sync m16n8k8 on
+    TF32 registers. The stand-in reads only a register's top 19 bits, as the
+    tensor core does, so the 3-pass split (hi = x rounded to TF32, lo = x -
+    hi; lo.hi + hi.lo + hi.hi) is within 2e-6 of an fp32 matmul, and one pass
+    on the raw fp32 values is not (it keeps about three decimal digits)."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to build the kernel sources for the CPU")
+    target = tmp_path / "libmma_probe.so"
+    proc = _emu_build(cxx, EMU / "mma_probe.cu", target)
+    assert proc.wait() == 0, proc.stderr.read()
+    lib = ctypes.CDLL(str(target))
+    lib.mma_probe_tf32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    gen = torch.Generator().manual_seed(6)
+    a, b = torch.randn(16, 16, generator=gen), torch.randn(16, 8, generator=gen)
+    ref = (a.double() @ b.double()).float()
+    for split in (1, 0):
+        d = torch.zeros(16, 8)
+        assert lib.mma_probe_tf32(a.data_ptr(), b.data_ptr(), d.data_ptr(), split) == 0
+        err = float((d - ref).abs().max())
+        assert err < 2e-6 if split else err > 1e-4, (split, err)
 
 
 def _weights(gen, dtype, cross):
@@ -227,6 +254,28 @@ def test_attention_heads_kernels_match_plain(libs, dtype, masked):
             _close(g, leaf.grad, dtype)
 
 
+@pytest.mark.parametrize("heads", [False, True])
+def test_attention_backward_kernels_ragged_tiles(libs, heads):
+    """K7b with five 32-row query tiles (both buffers of its double-buffered
+    loop, each more than once) and fewer keys than one 64-row tile, fp32, on
+    either layout."""
+    _, rn, mask = _attn_inputs(torch.float32, 60 + heads)
+    s, nq, nk = 1, 130, 47
+    shape = (lambda n: (s, AH, n, 64)) if heads else (lambda n: (s, n, AD))
+    q, k, v, do = rn(*shape(nq)), rn(*shape(nk)), rn(*shape(nk)), rn(*shape(nq))
+    mq, mk = mask(s, nq), mask(s, nk)
+    lib = libs["attention"]
+    if heads:
+        out, lse = fa.launch_attention_fwd_heads(lib, None, q, k, v, mq, mk, SCALE)
+    else:
+        out, lse = fa.launch_attention_fwd(lib, None, q, k, v, mq, mk, AH, SCALE)
+    grads = fa.launch_attention_bwd(lib, None, q, k, v, out, lse, mq, mk, do, AH, SCALE)
+    ref = (plain.attention_backward_heads(q, k, v, mq, mk, do, SCALE) if heads
+           else plain.attention_backward(q, k, v, mq, mk, do, AH, SCALE))
+    for g, r in zip(grads, ref):
+        _close(g, r, torch.float32)
+
+
 @pytest.mark.parametrize("masked", [True, False])
 def test_cross_attention_heads_kernel_matches_plain(libs, masked):
     """K7c: both message sets from one launch, M != N on either side of a tile
@@ -250,11 +299,12 @@ def _block0_weights(gen):
             rn(3, 3, 64, 64, scale=0.05), rn(64, scale=0.1), pos(), rn(64, scale=0.1))
 
 
-@pytest.mark.parametrize("b,h,w,blocks", [(1, 36, 44, 4), (2, 16, 18, 132)])
+@pytest.mark.parametrize("b,h,w,blocks", [(1, 36, 44, 4), (2, 16, 18, 132), (1, 20, 52, 2)])
 def test_block0_kernel_matches_plain(libs, b, h, w, blocks):
     """K8 on images whose pooled size is no multiple of the 8 x 8 tile, with a
     bright border (a halo that is not zeroed at the image edge shows there),
-    a block walking over several tiles."""
+    a block walking over several tiles (the last case: four a block, so both
+    of its double buffers are taken twice, and W / 2 = 26)."""
     gen = torch.Generator().manual_seed(h + w)
     image = torch.rand(b, h, w, 1, generator=gen) * 0.5
     image[:, :2], image[:, -2:], image[:, :, :2], image[:, :, -2:] = 1.0, 1.0, 1.0, 1.0
