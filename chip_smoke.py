@@ -14,8 +14,9 @@ adaptive, training) and SuperGlue on one GPU.
      the work allows; for the blocks also the time of each of their three
      launches and of the same block as bf16 torch calls. The build log's
      registers and spills are printed, and the bf16 block kernels, the
-     attention backward (K7b) and block 0 (K8) must show HMMA (tensor-core)
-     instructions in their SASS;
+     attention forwards (K5, K6a, K6b, K7a, K7c and the fp32 block
+     attention) and backward (K7b), block 0 (K8) and the log assignment's
+     product (K4) must show HMMA (tensor-core) instructions in their SASS;
   4. end to end: the two-view pipeline with the committed weights on a
      synthetic pair warped by a known homography, 480x640 / 1024 keypoints
      at batch 8 (launch counts, finiteness, agreement with the port's plain
@@ -273,10 +274,15 @@ def build_report():
 # library: (kernel-name prefixes, kernels with those prefixes), each of which
 # must have HMMA (tensor-core) instructions in its SASS
 TENSOR_CORE_KERNELS = {
-    "lightglue_block": (("tc::",), 3),  # the bf16 block kernels
-    # K7b's dk/dv and dq kernels, fp32 and bf16
-    "attention": (("attn_bwd_dkv_kernel", "attn_bwd_dq_kernel"), 4),
+    # the bf16 block kernels and the fp32 block attention (the forward tile)
+    "lightglue_block": (("tc::", "attn_kernel"), 4),
+    # the forwards (K5, K6b, K6a, K7a, K7c) and K7b's dk/dv and dq kernels,
+    # fp32 and bf16
+    "attention": (("attn_fwd_kernel", "cross_fwd_stacked_kernel", "cross_fwd_pair_kernel",
+                   "attn_fwd_heads_kernel", "cross_fwd_heads_kernel", "attn_bwd_dkv_kernel",
+                   "attn_bwd_dq_kernel"), 14),
     "block0_conv": (("block0_kernel",), 1),
+    "log_assignment": (("sim_kernel",), 1),  # K4's product
 }
 
 

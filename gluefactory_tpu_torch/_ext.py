@@ -50,9 +50,8 @@ SIGNATURES = {
         "b0_block0": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "log_assignment": {
-        "la_lse_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "la_assign_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _I, _I, _P],
+        "la_log_assignment": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _P],
     },
 }
 

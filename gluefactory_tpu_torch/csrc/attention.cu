@@ -27,6 +27,8 @@
 //   - every forward is the online-softmax tile of attention_fwd.cuh on the
 //     packed (S, N, H*64) layout (heads are channel strides, no transposes);
 //     it also writes the per-row log-sum-exp (S, H, N) for the backward;
+//     the inputs' rows must be 16-byte aligned (the wrappers copy a
+//     misaligned tensor);
 //   - the cross attention has a direction axis on the grid: direction d takes
 //     its queries from set d and its keys and values from set 1 - d, so one
 //     launch gives both message sets; sim is recomputed for the second
@@ -45,20 +47,21 @@
 //
 // Bound on the H100: at S = 64, N = 512, D = 256 the forward does 17 GFLOP
 // on 134 MB of fp32 I/O and the backward 43 GFLOP on 235 MB: both are
-// compute-bound (their inputs are fp32 in training). The forwards compute in
-// fp32 FMA on 4x4 register micro-tiles over 64x64 shared-memory tiles
-// (at most 67 TFLOP/s). The backward runs its products on the tensor cores
-// at fp32 accuracy: mma.sync m16n8k8 on TF32 operands, each fp32 operand
-// split into hi = x rounded to TF32 and lo = x - hi (gf::split_tf32) and each
-// product taken as lo.hi + hi.lo + hi.hi (three passes of the 495 TFLOP/s
-// TF32 rate, about 2^-21 relative error a product against 2^-11 for one
-// pass). A warp keeps sim^T/dp^T (or sim/dp) as C fragments and feeds p and
-// ds to the next product as A fragments in a permuted contraction order, so
-// they never leave registers. The block's own 64 rows stay in shared memory;
-// the loop's tiles of 32 rows are double-buffered by cp.async, which keeps a
-// block at 70 KB and 168 registers a thread: three blocks a multiprocessor.
-// The bf16 instantiation widens its tiles to fp32 and runs the same passes
-// (its inputs have no lo part).
+// compute-bound (their inputs are fp32 in training). Both run their products
+// on the tensor cores at fp32 accuracy: mma.sync m16n8k8 on TF32 operands,
+// each fp32 operand split into hi = x rounded to TF32 and lo = x - hi
+// (gf::split_tf32) and each product taken as lo.hi + hi.lo + hi.hi (three
+// passes of the 495 TFLOP/s TF32 rate, about 2^-21 relative error a product
+// against 2^-11 for one pass). A warp keeps its logits as C fragments and
+// feeds p (and ds) to the next product as A fragments in a permuted
+// contraction order, so they never leave registers. The forward is the
+// FlashAttention-2 tile of attention_fwd.cuh (Q split once into registers,
+// 64-key tiles double-buffered, key tiles without a valid key skipped). In
+// the backward the block's own 64 rows stay in shared memory; the loop's
+// tiles of 32 rows are double-buffered by cp.async, which keeps a block at
+// 70 KB and 168 registers a thread: three blocks a multiprocessor. The bf16
+// instantiations widen their tiles to fp32; the forward leaves out the passes
+// of the zero lo parts of its bf16 operands, the backward runs all three.
 #include <type_traits>
 
 #include "attention_fwd.cuh"
@@ -84,9 +87,16 @@ inline Lay make_lay(int layout, int N, int D, int H) {
 }
 
 // ------------------------------------------------------------- forward
+// The forward tile needs 166-176 registers a thread as compiled for each
+// kernel; capped at 168 (kFwdBlocks = 3 blocks of 4 warps an SM in place of
+// two) the cross forwards run 10-14% faster at a training step's shape. K7a
+// (SuperGlue's 512 blocks) ran 3% slower capped and is left uncapped
+// (scripts/torch_fwd_k4_variants.py).
+constexpr int kFwdBlocks = 3;
+
 // K5. grid (ceil(Nq / 64), H, S): set s attends to itself.
 template <class T>
-__global__ void __launch_bounds__(kThreads) attn_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, kFwdBlocks) attn_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const unsigned char* __restrict__ mq, const unsigned char* __restrict__ mk,
     T* __restrict__ out, float* __restrict__ lse, int Nq, int Nk, int D, float scale) {
@@ -102,7 +112,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(
 // K6b. grid (ceil(N / 64), H, 2B): set s takes its keys and values from its
 // partner (s + B) % 2B; out[s] holds the messages into set s.
 template <class T>
-__global__ void __launch_bounds__(kThreads) cross_fwd_stacked_kernel(
+__global__ void __launch_bounds__(kThreads, kFwdBlocks) cross_fwd_stacked_kernel(
     const T* __restrict__ qk, const T* __restrict__ v,
     const unsigned char* __restrict__ mask, T* __restrict__ out,
     float* __restrict__ lse, int B, int N, int D, float scale) {
@@ -119,7 +129,7 @@ __global__ void __launch_bounds__(kThreads) cross_fwd_stacked_kernel(
 // K6a. grid (ceil(max(M, N) / 64), H, 2B): z < B is direction 0 (queries of
 // set 0, M rows, against set 1), z >= B direction 1.
 template <class T>
-__global__ void __launch_bounds__(kThreads) cross_fwd_pair_kernel(
+__global__ void __launch_bounds__(kThreads, kFwdBlocks) cross_fwd_pair_kernel(
     const T* __restrict__ qk0, const T* __restrict__ qk1, const T* __restrict__ v0,
     const T* __restrict__ v1, const unsigned char* __restrict__ mask0,
     const unsigned char* __restrict__ mask1, T* __restrict__ out0, T* __restrict__ out1,
@@ -160,7 +170,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_heads_kernel(
 // K7c. grid (ceil(max(M, N) / 64), H, 2B) on the per-head layout: z < B is
 // direction 0 (queries of set 0, M rows, against set 1), z >= B direction 1.
 template <class T>
-__global__ void __launch_bounds__(kThreads) cross_fwd_heads_kernel(
+__global__ void __launch_bounds__(kThreads, kFwdBlocks) cross_fwd_heads_kernel(
     const T* __restrict__ qk0, const T* __restrict__ qk1, const T* __restrict__ v0,
     const T* __restrict__ v1, const unsigned char* __restrict__ mask0,
     const unsigned char* __restrict__ mask1, T* __restrict__ out0, T* __restrict__ out1,
@@ -188,8 +198,7 @@ __global__ void __launch_bounds__(kThreads) cross_fwd_heads_kernel(
 // stride kBPad = 68 floats (272 bytes: 16-byte aligned rows), so every
 // fragment load below (ldmatrix row-wise; scalar down the columns: rows 2t,
 // columns g) is free of bank conflicts.
-constexpr int kBThreads = 128;
-constexpr int kBPad = 68;
+constexpr int kBPad = gf::kAttnPad;
 constexpr int kBTileF = kTile * kBPad;  // floats of the block's own 64-row tile
 constexpr int kStep = 32;  // rows of the loop's tiles (queries for dk/dv, keys for dq)
 constexpr float kLog2e = 1.4426950408889634f;  // p = 2^(sim scale log2(e) - lse log2(e))
@@ -216,81 +225,13 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_delta_kernel(
   if (lane == 0) delta[row] = acc;
 }
 
-// Rows [r0, r0 + rows) of one head (row stride ld) into dst[r][0..64) at
-// row stride kBPad, in fp32; rows from n on are zero. fp32 goes by cp.async
-// (the caller commits and waits), bf16 by loads that convert.
-template <int rows, class T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, int r0, int n,
-                                           int ld) {
-  if constexpr (std::is_same<T, float>::value) {
-    for (int e = threadIdx.x; e < rows * kDh / 4; e += kBThreads) {
-      const int r = e / (kDh / 4), c = e % (kDh / 4) * 4;
-      const bool in = r0 + r < n;
-      gf::cp_async16(dst + r * kBPad + c, in ? src + (size_t)(r0 + r) * ld + c : src, in);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * kDh; e += kBThreads) {
-      const int r = e / kDh, d = e % kDh;
-      dst[r * kBPad + d] = r0 + r < n ? gf::to_f(src[(size_t)(r0 + r) * ld + d]) : 0.f;
-    }
-  }
-}
-
-// Fragments of one m16n8k8 step, each element split into TF32 hi and lo.
-// Row-wise fragments come by ldmatrix: an fp32 element is a pair of b16
-// halves, so an 8 x 8 b16 matrix is 8 rows x 4 floats and lane (g, t) gets
-// the float at (row g, column t).
-// A(r, k) = tile[m0 + r][k0 + k]
-__device__ __forceinline__ void frag_a(unsigned hi[4], unsigned lo[4], const float* tile, int m0,
-                                       int k0) {
-  const int l = threadIdx.x % 32;
-  unsigned r[4];
-  gf::ldsm_x4(r, tile + (m0 + l / 8 % 2 * 8 + l % 8) * kBPad + k0 + l / 16 * 4);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) gf::split_tf32(__uint_as_float(r[i]), hi[i], lo[i]);
-}
-// B of two n8 tiles, B(k, n) = tile[n0 + n][k0 + k] for n < 16 (the
-// contraction runs along the tile's rows): [0..1] the tile at n0, [2..3] n0 + 8
-__device__ __forceinline__ void frag_b_rows(unsigned hi[4], unsigned lo[4], const float* tile,
-                                            int n0, int k0) {
-  const int l = threadIdx.x % 32;
-  unsigned r[4];
-  gf::ldsm_x4(r, tile + (n0 + l / 16 * 8 + l % 8) * kBPad + k0 + l / 8 % 2 * 4);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) gf::split_tf32(__uint_as_float(r[i]), hi[i], lo[i]);
-}
-// B(k, n) = tile[k0 + k][n0 + n], contraction down the tile's columns, in
-// the permuted order of frag_c: k = t is row 2t, k = t + 4 row 2t + 1
-__device__ __forceinline__ void frag_b_cols(unsigned hi[2], unsigned lo[2], const float* tile,
-                                            int k0, int n0) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  const float* p = tile + (k0 + 2 * t) * kBPad + n0 + g;
-  gf::split_tf32(p[0], hi[0], lo[0]);
-  gf::split_tf32(p[kBPad], hi[1], lo[1]);
-}
-// The A fragment of the 16 x 8 block held as the C fragment c (columns
-// 2t, 2t + 1 of rows g, g + 8), in the permuted order: no data moves
-__device__ __forceinline__ void frag_c(unsigned hi[4], unsigned lo[4], const float c[4]) {
-  gf::split_tf32(c[0], hi[0], lo[0]);
-  gf::split_tf32(c[2], hi[1], lo[1]);
-  gf::split_tf32(c[1], hi[2], lo[2]);
-  gf::split_tf32(c[3], hi[3], lo[3]);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<unsigned*>(p) = gf::pack_bf16(a, b);
-}
-
 // grid (ceil(Nk / 64), H, S). The block owns key tile j0 and its dk, dv; it
 // loops over tiles of kStep queries, the next one's Q and dO in flight while
 // this one's run. A warp holds sim^T and dp^T of its 16 keys against the
 // tile's queries as C fragments, turns them into p^T and ds^T in place and
 // feeds them as the A operand of dv += p^T do and dk += ds^T q.
 template <class T>
-__global__ void __launch_bounds__(kBThreads) attn_bwd_dkv_kernel(
+__global__ void __launch_bounds__(kThreads) attn_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const unsigned char* __restrict__ mq,
@@ -310,8 +251,8 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dkv_kernel(
 
   auto stage_queries = [&](int it) {
     const int buf = it & 1, i0 = it * kStep;
-    stage_rows<kStep, T>(Qs + buf * kStepF, q + qb, i0, Nq, lq.row);
-    stage_rows<kStep, T>(dOs + buf * kStepF, dout + qb, i0, Nq, lq.row);
+    gf::stage_rows<kStep, T>(Qs + buf * kStepF, q + qb, i0, Nq, lq.row);
+    gf::stage_rows<kStep, T>(dOs + buf * kStepF, dout + qb, i0, Nq, lq.row);
     if (tid < kStep) {
       const int gi = i0 + tid;
       const bool in = gi < Nq;
@@ -322,8 +263,8 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dkv_kernel(
     }
     gf::cp_async_commit();
   };
-  stage_rows<kTile, T>(Ks, k + kb, j0, Nk, lk.row);
-  stage_rows<kTile, T>(Vs, v + kb, j0, Nk, lk.row);
+  gf::stage_rows<kTile, T>(Ks, k + kb, j0, Nk, lk.row);
+  gf::stage_rows<kTile, T>(Vs, v + kb, j0, Nk, lk.row);
   stage_queries(0);
   bool kv[2];
   for (int r = 0; r < 2; ++r) {
@@ -351,15 +292,15 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dkv_kernel(
 #pragma unroll
     for (int ks = 0; ks < 8; ++ks) {
       unsigned kh[4], kl[4], vh[4], vl[4];
-      frag_a(kh, kl, Ks, m0, 8 * ks);
-      frag_a(vh, vl, Vs, m0, 8 * ks);
+      gf::frag_a<kBPad>(kh, kl, Ks, m0, 8 * ks);
+      gf::frag_a<kBPad>(vh, vl, Vs, m0, 8 * ks);
 #pragma unroll
       for (int nt = 0; nt < kStep / 8; nt += 2) {
         unsigned bh[4], bl[4];
-        frag_b_rows(bh, bl, Qt, 8 * nt, 8 * ks);
+        gf::frag_b_rows<kBPad>(bh, bl, Qt, 8 * nt, 8 * ks);
         gf::mma_tf32x3(st[nt], kh, kl, bh, bl);
         gf::mma_tf32x3(st[nt + 1], kh, kl, bh + 2, bl + 2);
-        frag_b_rows(bh, bl, dOt, 8 * nt, 8 * ks);
+        gf::frag_b_rows<kBPad>(bh, bl, dOt, 8 * nt, 8 * ks);
         gf::mma_tf32x3(dpt[nt], vh, vl, bh, bl);
         gf::mma_tf32x3(dpt[nt + 1], vh, vl, bh + 2, bl + 2);
       }
@@ -377,14 +318,14 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dkv_kernel(
 #pragma unroll
     for (int kk = 0; kk < kStep / 8; ++kk) {
       unsigned ph[4], pl[4], sh[4], sl[4];
-      frag_c(ph, pl, st[kk]);
-      frag_c(sh, sl, dpt[kk]);
+      gf::frag_c(ph, pl, st[kk]);
+      gf::frag_c(sh, sl, dpt[kk]);
 #pragma unroll
       for (int nd = 0; nd < 8; ++nd) {
         unsigned bh[2], bl[2];
-        frag_b_cols(bh, bl, dOt, 8 * kk, 8 * nd);
+        gf::frag_b_cols<kBPad>(bh, bl, dOt, 8 * kk, 8 * nd);
         gf::mma_tf32x3(dva[nd], ph, pl, bh, bl);  // dv[j][d] += sum_i p[i][j] do[i][d]
-        frag_b_cols(bh, bl, Qt, 8 * kk, 8 * nd);
+        gf::frag_b_cols<kBPad>(bh, bl, Qt, 8 * kk, 8 * nd);
         gf::mma_tf32x3(dka[nd], sh, sl, bh, bl);  // dk[j][d] += sum_i ds[i][j] q[i][d]
       }
     }
@@ -398,8 +339,8 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dkv_kernel(
     const size_t at = kb + (size_t)gj * lk.row + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < 8; ++nd) {
-      store2(dk + at + 8 * nd, dka[nd][2 * r], dka[nd][2 * r + 1]);
-      store2(dv + at + 8 * nd, dva[nd][2 * r], dva[nd][2 * r + 1]);
+      gf::store2(dk + at + 8 * nd, dka[nd][2 * r], dka[nd][2 * r + 1]);
+      gf::store2(dv + at + 8 * nd, dva[nd][2 * r], dva[nd][2 * r + 1]);
     }
   }
 }
@@ -409,7 +350,7 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dkv_kernel(
 // holds sim and dp of its 16 queries against the tile's keys, turns them into
 // ds in place and feeds it as the A operand of dq += ds k.
 template <class T>
-__global__ void __launch_bounds__(kBThreads) attn_bwd_dq_kernel(
+__global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const unsigned char* __restrict__ mq,
@@ -429,8 +370,8 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dq_kernel(
 
   auto stage_keys = [&](int it) {
     const int buf = it & 1, j0 = it * kStep;
-    stage_rows<kStep, T>(Ks + buf * kStepF, k + kb, j0, Nk, lk.row);
-    stage_rows<kStep, T>(Vs + buf * kStepF, v + kb, j0, Nk, lk.row);
+    gf::stage_rows<kStep, T>(Ks + buf * kStepF, k + kb, j0, Nk, lk.row);
+    gf::stage_rows<kStep, T>(Vs + buf * kStepF, v + kb, j0, Nk, lk.row);
     if (tid < kStep) {
       const int gj = j0 + tid;
       kval[buf * kStep + tid] =
@@ -438,8 +379,8 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dq_kernel(
     }
     gf::cp_async_commit();
   };
-  stage_rows<kTile, T>(Qs, q + qb, i0, Nq, lq.row);
-  stage_rows<kTile, T>(dOs, dout + qb, i0, Nq, lq.row);
+  gf::stage_rows<kTile, T>(Qs, q + qb, i0, Nq, lq.row);
+  gf::stage_rows<kTile, T>(dOs, dout + qb, i0, Nq, lq.row);
   stage_keys(0);
   bool qv[2];
   float rl[2], rd[2];
@@ -471,15 +412,15 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dq_kernel(
 #pragma unroll
     for (int ks = 0; ks < 8; ++ks) {
       unsigned qh[4], ql[4], oh[4], ol[4];
-      frag_a(qh, ql, Qs, m0, 8 * ks);
-      frag_a(oh, ol, dOs, m0, 8 * ks);
+      gf::frag_a<kBPad>(qh, ql, Qs, m0, 8 * ks);
+      gf::frag_a<kBPad>(oh, ol, dOs, m0, 8 * ks);
 #pragma unroll
       for (int nt = 0; nt < kStep / 8; nt += 2) {
         unsigned bh[4], bl[4];
-        frag_b_rows(bh, bl, Kt, 8 * nt, 8 * ks);
+        gf::frag_b_rows<kBPad>(bh, bl, Kt, 8 * nt, 8 * ks);
         gf::mma_tf32x3(sa[nt], qh, ql, bh, bl);
         gf::mma_tf32x3(sa[nt + 1], qh, ql, bh + 2, bl + 2);
-        frag_b_rows(bh, bl, Vt, 8 * nt, 8 * ks);
+        gf::frag_b_rows<kBPad>(bh, bl, Vt, 8 * nt, 8 * ks);
         gf::mma_tf32x3(dpa[nt], oh, ol, bh, bl);
         gf::mma_tf32x3(dpa[nt + 1], oh, ol, bh + 2, bl + 2);
       }
@@ -496,11 +437,11 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dq_kernel(
 #pragma unroll
     for (int kk = 0; kk < kStep / 8; ++kk) {
       unsigned sh[4], sl[4];
-      frag_c(sh, sl, sa[kk]);
+      gf::frag_c(sh, sl, sa[kk]);
 #pragma unroll
       for (int nd = 0; nd < 8; ++nd) {
         unsigned bh[2], bl[2];
-        frag_b_cols(bh, bl, Kt, 8 * kk, 8 * nd);
+        gf::frag_b_cols<kBPad>(bh, bl, Kt, 8 * kk, 8 * nd);
         gf::mma_tf32x3(dqa[nd], sh, sl, bh, bl);  // dq[i][d] += sum_j ds[i][j] k[j][d]
       }
     }
@@ -513,7 +454,7 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dq_kernel(
     if (gi >= Nq) continue;
     const size_t at = qb + (size_t)gi * lq.row + 2 * t;
 #pragma unroll
-    for (int nd = 0; nd < 8; ++nd) store2(dq + at + 8 * nd, dqa[nd][2 * r], dqa[nd][2 * r + 1]);
+    for (int nd = 0; nd < 8; ++nd) gf::store2(dq + at + 8 * nd, dqa[nd][2 * r], dqa[nd][2 * r + 1]);
   }
 }
 
@@ -602,10 +543,10 @@ int launch_attn_bwd(const void* q, const void* k, const void* v, const void* o,
   const size_t rows = (size_t)S * H * Nq, warps = kThreads / 32;
   GF_LAUNCH(attn_bwd_delta_kernel<T>, dim3((unsigned)((rows + warps - 1) / warps)), kThreads, 0,
             st, (const T*)o, (const T*)dout, delta, S, Nq, lq, H);
-  GF_LAUNCH(attn_bwd_dkv_kernel<T>, dim3((Nk + kTile - 1) / kTile, H, S), kBThreads, kDkvSmem,
+  GF_LAUNCH(attn_bwd_dkv_kernel<T>, dim3((Nk + kTile - 1) / kTile, H, S), kThreads, kDkvSmem,
             st, (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
             (const float*)delta, mq, mk, (T*)dk, (T*)dv, Nq, Nk, lq, lk, scale);
-  GF_LAUNCH(attn_bwd_dq_kernel<T>, dim3((Nq + kTile - 1) / kTile, H, S), kBThreads, kDqSmem,
+  GF_LAUNCH(attn_bwd_dq_kernel<T>, dim3((Nq + kTile - 1) / kTile, H, S), kThreads, kDqSmem,
             st, (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
             (const float*)delta, mq, mk, (T*)dq, Nq, Nk, lq, lk, scale);
   return (int)cudaGetLastError();

@@ -59,8 +59,10 @@
 // TFLOP/s).
 //
 // fp32 (the parity path): the first version's FMA kernels, 4x4 register
-// micro-tiles over 64x64 shared-memory tiles, at the 67 TFLOP/s fp32 rate;
-// the intermediates q/k/v/ctx make one round trip through device memory.
+// micro-tiles over 64x64 shared-memory tiles, at the 67 TFLOP/s fp32 rate,
+// for proj and the FFN tail; the attention is the training forward's tile
+// (attention_fwd.cuh, split-TF32 mma.sync at fp32 accuracy); the
+// intermediates q/k/v/ctx make one round trip through device memory.
 #include "attention_fwd.cuh"
 #include "mma.cuh"
 
@@ -140,11 +142,12 @@ __global__ void __launch_bounds__(kThreads) proj_kernel(
 
 // ----------------------------------------------------------- attention
 // grid (ceil(N / 64), H, S); the tile itself is gf::attn_fwd_tile
-// (attention_fwd.cuh), shared with the training attention kernels.
+// (attention_fwd.cuh), shared with the training attention kernels, and
+// capped like them at 168 registers: three blocks a multiprocessor.
 constexpr int kAttnSmem = gf::kAttnFwdSmem;
 
 template <class T>
-__global__ void __launch_bounds__(kThreads) attn_kernel(
+__global__ void __launch_bounds__(gf::kAttnThreads, 3) attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const unsigned char* __restrict__ mask, T* __restrict__ out,
     int S, int N, int D, int kv_shift, float scale) {
@@ -801,7 +804,7 @@ int launch_attn(const void* q, const void* k, const void* v,
   static cudaError_t attr = gf::allow_smem(attn_kernel<T>, kAttnSmem);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((N + kTile - 1) / kTile, H, S);
-  GF_LAUNCH(attn_kernel<T>, grid, kThreads, kAttnSmem, stream, (const T*)q,
+  GF_LAUNCH(attn_kernel<T>, grid, gf::kAttnThreads, kAttnSmem, stream, (const T*)q,
             (const T*)k, (const T*)v, mask, (T*)out, S, N, D, kv_shift, scale);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Warp-level building blocks of the tensor-core kernels: bf16 and TF32
-// mma.sync, ldmatrix and cp.async as inline PTX on the card, and lane
-// shuffles.
+// mma.sync, ldmatrix and cp.async as inline PTX on the card, lane shuffles,
+// and the split-TF32 fragments of fp32 tiles in shared memory (fp32
+// accuracy on the TF32 tensor cores).
 // tests/cuda_emu/cuda_runtime.h defines GF_EMU_WARP and gives the same
 // functions (and __shfl_xor_sync) as stand-ins that exchange fragments
 // through per-warp scratch, so the kernels that call them run on the CPU
@@ -114,18 +115,82 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) 
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// d += a * b at about fp32 accuracy from three TF32 passes of split_tf32's
-// parts (a_lo b_lo is dropped): the two small terms first, the large one last
+// d += a * b at about fp32 accuracy from the TF32 passes of split_tf32's
+// parts (a_lo b_lo is dropped): the small terms first, the large one last.
+// An operand that is exact in TF32 (bf16 data widened to fp32) has a zero lo
+// part; its pass is left out.
+template <bool kAExact, bool kBExact>
+__device__ __forceinline__ void mma_split(float d[4], const unsigned ahi[4], const unsigned alo[4],
+                                          const unsigned bhi[2], const unsigned blo[2]) {
+  if constexpr (!kAExact) mma_tf32_m16n8k8(d, alo, bhi);
+  if constexpr (!kBExact) mma_tf32_m16n8k8(d, ahi, blo);
+  mma_tf32_m16n8k8(d, ahi, bhi);
+}
+// the three passes of two fp32 operands
 __device__ __forceinline__ void mma_tf32x3(float d[4], const unsigned ahi[4],
                                            const unsigned alo[4], const unsigned bhi[2],
                                            const unsigned blo[2]) {
-  mma_tf32_m16n8k8(d, alo, bhi);
-  mma_tf32_m16n8k8(d, ahi, blo);
-  mma_tf32_m16n8k8(d, ahi, bhi);
+  mma_split<false, false>(d, ahi, alo, bhi, blo);
+}
+
+// Fragments of one m16n8k8 step from an fp32 tile in shared memory (row
+// stride kS floats, 16-byte aligned rows), each element split into TF32 hi
+// and lo. Row-wise fragments come by ldmatrix: an fp32 element is a pair of
+// b16 halves, so an 8 x 8 b16 matrix is 8 rows x 4 floats and lane (g, t)
+// gets the float at (row g, column t). A stride of 4 (mod 32) floats keeps
+// the eight rows of each ldmatrix, and the scalar loads of frag_b_cols, on
+// distinct banks.
+// A(r, k) = tile[m0 + r][k0 + k]
+template <int kS>
+__device__ __forceinline__ void frag_a(unsigned hi[4], unsigned lo[4], const float* tile, int m0,
+                                       int k0) {
+  const int l = threadIdx.x % 32;
+  unsigned r[4];
+  ldsm_x4(r, tile + (m0 + l / 8 % 2 * 8 + l % 8) * kS + k0 + l / 16 * 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), hi[i], lo[i]);
+}
+// B of two n8 tiles, B(k, n) = tile[n0 + n][k0 + k] for n < 16 (the
+// contraction runs along the tile's rows): [0..1] the tile at n0, [2..3] n0 + 8
+template <int kS>
+__device__ __forceinline__ void frag_b_rows(unsigned hi[4], unsigned lo[4], const float* tile,
+                                            int n0, int k0) {
+  const int l = threadIdx.x % 32;
+  unsigned r[4];
+  ldsm_x4(r, tile + (n0 + l / 16 * 8 + l % 8) * kS + k0 + l / 8 % 2 * 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), hi[i], lo[i]);
+}
+// B(k, n) = tile[k0 + k][n0 + n], contraction down the tile's columns, in
+// the permuted order of frag_c: k = t is row 2t, k = t + 4 row 2t + 1
+template <int kS>
+__device__ __forceinline__ void frag_b_cols(unsigned hi[2], unsigned lo[2], const float* tile,
+                                            int k0, int n0) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const float* p = tile + (k0 + 2 * t) * kS + n0 + g;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[kS], hi[1], lo[1]);
+}
+// The A fragment of the 16 x 8 block held as the C fragment c (columns
+// 2t, 2t + 1 of rows g, g + 8), in the permuted order: no data moves
+__device__ __forceinline__ void frag_c(unsigned hi[4], unsigned lo[4], const float c[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
 }
 
 __device__ __forceinline__ float shfl_xor(float v, int lane_mask) {
   return __shfl_xor_sync(0xffffffffu, v, lane_mask);
+}
+
+// two neighbouring elements of a row in one store (p 8-byte aligned for
+// float, 4-byte for bf16)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<unsigned*>(p) = pack_bf16(a, b);
 }
 
 }  // namespace gf

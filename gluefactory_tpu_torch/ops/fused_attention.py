@@ -79,8 +79,8 @@ def _c(t):
 
 
 def _aligned16(t):
-    """t, or a copy that starts on a 16-byte boundary: the backward kernels
-    stage rows in 16-byte cp.async pieces."""
+    """t, or a copy that starts on a 16-byte boundary: the kernels stage rows
+    in 16-byte cp.async pieces."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -91,6 +91,7 @@ def _stream(x):
 # ------------------------------------------------- launches through a library
 def launch_attention_fwd(lib, stream, q, k, v, mask_q, mask_k, num_heads, scale):
     """(context (S, Nq, D), log-sum-exp (S, H, Nq) fp32) through `lib`."""
+    q, k, v = map(_aligned16, (q, k, v))
     s, nq, d = q.shape
     nk = k.shape[1]
     out = torch.empty_like(q)
@@ -103,6 +104,7 @@ def launch_attention_fwd(lib, stream, q, k, v, mask_q, mask_k, num_heads, scale)
 
 def launch_cross_fwd_stacked(lib, stream, qk, v, mask, num_heads, scale):
     """(messages (2B, N, D): row s holds those into set s; lse (2B, H, N))."""
+    qk, v = map(_aligned16, (qk, v))
     s2, n, d = qk.shape
     out = torch.empty_like(qk)
     lse = torch.empty((s2, num_heads, n), dtype=torch.float32, device=qk.device)
@@ -114,6 +116,7 @@ def launch_cross_fwd_stacked(lib, stream, qk, v, mask, num_heads, scale):
 
 def launch_cross_fwd_pair(lib, stream, qk0, qk1, v0, v1, mask0, mask1, num_heads, scale):
     """(m0 (B, M, D), m1 (B, N, D), lse0 (B, H, M), lse1 (B, H, N))."""
+    qk0, qk1, v0, v1 = map(_aligned16, (qk0, qk1, v0, v1))
     b, m, d = qk0.shape
     n = qk1.shape[1]
     m0, m1 = torch.empty_like(qk0), torch.empty_like(qk1)
@@ -128,6 +131,7 @@ def launch_cross_fwd_pair(lib, stream, qk0, qk1, v0, v1, mask0, mask1, num_heads
 
 def launch_attention_fwd_heads(lib, stream, q, k, v, mask_q, mask_k, scale):
     """Per-head layout: (context (B, H, Nq, Dh), log-sum-exp (B, H, Nq) fp32)."""
+    q, k, v = map(_aligned16, (q, k, v))
     b, h, nq, _ = q.shape
     nk = k.shape[2]
     out = torch.empty_like(q)
@@ -141,6 +145,7 @@ def launch_attention_fwd_heads(lib, stream, q, k, v, mask_q, mask_k, scale):
 def launch_cross_fwd_heads(lib, stream, qk0, qk1, v0, v1, mask0, mask1, scale):
     """Per-head layout: (m0 (B, H, M, Dh), m1 (B, H, N, Dh), lse0 (B, H, M),
     lse1 (B, H, N))."""
+    qk0, qk1, v0, v1 = map(_aligned16, (qk0, qk1, v0, v1))
     b, h, m, _ = qk0.shape
     n = qk1.shape[2]
     m0, m1 = torch.empty_like(qk0), torch.empty_like(qk1)

@@ -1,5 +1,6 @@
 """Fused LightGlue log assignment: the plain PyTorch version, the wrapper of
-its CUDA kernels (csrc/log_assignment.cu), and match filtering from the
+its CUDA kernels (csrc/log_assignment.cu: sim once on the tensor cores at
+fp32 accuracy, then a coalesced finish pass), and match filtering from the
 row/column statistics.
 
 Counterpart of `fused_log_assignment` and `filter_matches_from_stats` in
@@ -75,26 +76,23 @@ def filter_matches_from_stats(rowmax, rowarg, colmax, colarg, th: float):
 
 
 def launch_log_assignment(lib, stream, mdesc0, mdesc1, z0, z1, mask0, mask1):
-    """The four launches: row LSE, column LSE, write + row stats, column stats."""
+    """One call of the kernels: the product with the tiles' log-sum-exp
+    partials, their merge, the finish pass, the argmax merge."""
     b, m, d = mdesc0.shape
     n = mdesc1.shape[1]
     f32 = dict(dtype=torch.float32, device=mdesc0.device)
-    lse0, lse1 = torch.empty((b, m), **f32), torch.empty((b, n), **f32)
     scores = torch.empty((b, m + 1, n + 1), **f32)
     rowmax, colmax = torch.empty((b, m), **f32), torch.empty((b, n), **f32)
     rowarg = torch.empty((b, m), dtype=torch.int32, device=mdesc0.device)
     colarg = torch.empty((b, n), dtype=torch.int32, device=mdesc0.device)
+    # per-tile partials of every row and column (64 x 64 tiles) and the
+    # certainties: the layout of `Scratch` in csrc/log_assignment.cu
+    row_tiles, col_tiles = -(-m // 64), -(-n // 64)
+    scratch = torch.empty(b * (2 * col_tiles * m + 2 * row_tiles * n + m + n), **f32)
     p = lambda t: None if t is None else t.data_ptr()
-    _ext.check(lib.la_lse_rows(p(mdesc0), p(mdesc1), p(mask0), p(mask1), p(lse0),
-                               b, m, n, d, stream), "la_lse_rows")
-    _ext.check(lib.la_lse_rows(p(mdesc1), p(mdesc0), p(mask1), p(mask0), p(lse1),
-                               b, n, m, d, stream), "la_lse_rows")
-    _ext.check(lib.la_assign_rows(p(mdesc0), p(mdesc1), p(z0), p(z1), p(lse0), p(lse1),
-                                  p(mask0), p(mask1), p(scores), p(rowmax), p(rowarg),
-                                  b, m, n, d, stream), "la_assign_rows")
-    _ext.check(lib.la_assign_rows(p(mdesc1), p(mdesc0), p(z1), p(z0), p(lse1), p(lse0),
-                                  p(mask1), p(mask0), None, p(colmax), p(colarg),
-                                  b, n, m, d, stream), "la_assign_rows")
+    _ext.check(lib.la_log_assignment(p(mdesc0), p(mdesc1), p(z0), p(z1), p(mask0), p(mask1),
+                                     p(scores), p(rowmax), p(rowarg), p(colmax), p(colarg),
+                                     p(scratch), b, m, n, d, stream), "la_log_assignment")
     return scores, rowmax, rowarg, colmax, colarg
 
 
@@ -118,6 +116,8 @@ def fused_log_assignment(mdesc0, mdesc1, z0, z1, mask0=None, mask1=None):
                                or mk.device != mdesc0.device):
             raise ValueError(f"fused_log_assignment: masks must be bool ({b}, {k})")
         masks.append(None if mk is None else mk.contiguous())
+    # the kernels copy rows in 16-byte pieces (cp.async)
+    mdesc0, mdesc1 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (mdesc0, mdesc1))
     lib = _ext.load("log_assignment")
     out = launch_log_assignment(lib, torch.cuda.current_stream(mdesc0.device).cuda_stream,
                                 mdesc0, mdesc1, z0, z1, *masks)

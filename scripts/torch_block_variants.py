@@ -47,6 +47,25 @@ VARIANTS = {
 }
 
 
+def inlined_headers(mma=(), fwd=()):
+    """Substitutions for csrc/attention.cu that inline its headers
+    csrc/mma.cuh and csrc/attention_fwd.cuh, each edited by its (old, new)
+    pairs: a variant of code the headers hold, built without touching them."""
+    from gluefactory_tpu_torch import _ext
+
+    def edited(name, subs):
+        text = (_ext.CSRC / name).read_text().replace("#pragma once\n", "")
+        for a, b in subs:
+            if a not in text:
+                raise SystemExit(f"{a[:60]!r} is not in {name}")
+            text = text.replace(a, b)
+        return text
+
+    tile = edited("attention_fwd.cuh", fwd).replace('#include "mma.cuh"\n', "")
+    return [('#include "attention_fwd.cuh"\n', edited("mma.cuh", mma) + tile),
+            ('#include "mma.cuh"\n', "")]
+
+
 def build(variants_by_lib: dict, out: Path) -> dict:
     """Build every variant of each csrc/<name>.cu, all nvcc processes at once,
     and load them: {name: {label: library}}."""

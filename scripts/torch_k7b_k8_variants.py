@@ -29,7 +29,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from torch_block_variants import build  # noqa: E402  (this script's directory)
+from torch_block_variants import build, inlined_headers  # noqa: E402  (this directory)
 
 ONE_PASS = '''#include "mma.cuh"
 namespace {
@@ -39,21 +39,11 @@ __device__ __forceinline__ void mma_one_pass(float d[4], const unsigned ah[4], c
 }
 }  // namespace
 '''
-NO_SPLIT = '''#include "mma.cuh"
-namespace {
-__device__ __forceinline__ void raw_split(float x, unsigned& hi, unsigned& lo) {
-  hi = lo = __float_as_uint(x);
-}
-}  // namespace
-'''
-RNA_SPLIT = '''#include "mma.cuh"
-namespace {
-__device__ __forceinline__ void rna_split(float x, unsigned& hi, unsigned& lo) {
-  hi = gf::to_tf32(x);
-  lo = gf::to_tf32(x - __uint_as_float(hi));
-}
-}  // namespace
-'''
+# the body of gf::split_tf32 (csrc/mma.cuh) and two others
+SPLIT = ("  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+         "  lo = __float_as_uint(x - __uint_as_float(hi));")
+RNA_SPLIT = "  hi = to_tf32(x);\n  lo = to_tf32(x - __uint_as_float(hi));"
+NO_SPLIT = "  hi = lo = __float_as_uint(x);"
 EXP2 = ["exp2f(fmaf(st[nt][e], scale2, -rw[i]))", "exp2f(fmaf(sa[nt][e], scale2, -rl[r]))"]
 DKV = "  GF_LAUNCH(attn_bwd_dkv_kernel<T>,"
 DQ = "  GF_LAUNCH(attn_bwd_dq_kernel<T>,"
@@ -62,15 +52,14 @@ B0_MMA = [("          gf::mma_bf16_m16n8k16(acc[{r}][2 * np{o}], fa{r}, fb{b});"
 VARIANTS = {
     "attention": {
         "base": [],
-        "split by cvt.rna for hi and lo": [('#include "mma.cuh"\n', RNA_SPLIT),
-                                           ("gf::split_tf32(", "rna_split(")],
+        "split by cvt.rna for hi and lo": inlined_headers(mma=[(SPLIT, RNA_SPLIT)]),
         "64-row loop tiles": [("constexpr int kStep = 32;", "constexpr int kStep = 64;")],
         "expf in place of exp2f": [
             (e, e.replace("exp2f(", "expf(0.69314718f * ")) for e in EXP2],
         "timing only: one TF32 pass": [('#include "mma.cuh"\n', ONE_PASS),
                                        ("gf::mma_tf32x3(", "mma_one_pass(")],
-        "timing only: three passes without the split's arithmetic": [
-            ('#include "mma.cuh"\n', NO_SPLIT), ("gf::split_tf32(", "raw_split(")],
+        "timing only: three passes without the split's arithmetic": inlined_headers(
+            mma=[(SPLIT, NO_SPLIT)]),
         "timing only: delta and dk/dv kernels": [(DQ, "  if (Nq < 0)" + DQ[1:])],
         "timing only: delta and dq kernels": [(DKV, "  if (Nq < 0)" + DKV[1:])],
         "timing only: delta kernel": [(DQ, "  if (Nq < 0)" + DQ[1:]),

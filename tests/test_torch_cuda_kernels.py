@@ -243,6 +243,45 @@ def test_attention_backward_is_deterministic(gen, heads):
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("kernel", ["log_assignment", "attention_packed", "cross_stacked",
+                                    "attention_heads", "cross_heads"])
+def test_forwards_and_log_assignment_are_deterministic(gen, kernel):
+    """K4 and the forward tile have no atomics: two calls on the same inputs
+    give bit-identical outputs (and log-sum-exps). The keys past the first
+    64 of the second set are masked, so their tiles are skipped; the fourth
+    set has no valid key and gets exact zero rows with lse 0."""
+    lib = _ext.load("log_assignment" if kernel == "log_assignment" else "attention")
+    stream = torch.cuda.current_stream().cuda_stream
+    s, nq, nk = 4, 200, 150
+    mq, mk = _mask(gen, s, nq), _mask(gen, s, nk)
+    mk[1, 64:] = False
+    mk[3] = False
+    if kernel == "log_assignment":
+        args = (_rn(gen, s, nq, D, scale=D**-0.25), _rn(gen, s, nk, D, scale=D**-0.25),
+                _rn(gen, s, nq), _rn(gen, s, nk), mq, mk)
+        run = lambda: la.launch_log_assignment(lib, stream, *args)
+    elif kernel == "attention_packed":
+        q, k, v = (_rn(gen, s, n, D) for n in (nq, nk, nk))
+        run = lambda: fa.launch_attention_fwd(lib, stream, q, k, v, mq, mk, 4, 0.125)
+    elif kernel == "cross_stacked":
+        qk, v = _rn(gen, s, nk, D), _rn(gen, s, nk, D)
+        run = lambda: fa.launch_cross_fwd_stacked(lib, stream, qk, v, mk, 4, 0.125)
+    elif kernel == "attention_heads":
+        q, k, v = (_rn(gen, s, 4, n, 64) for n in (nq, nk, nk))
+        run = lambda: fa.launch_attention_fwd_heads(lib, stream, q, k, v, mq, mk, 0.125)
+    else:
+        qk0, v0 = _rn(gen, s, 4, nq, 64), _rn(gen, s, 4, nq, 64)
+        qk1, v1 = _rn(gen, s, 4, nk, 64), _rn(gen, s, 4, nk, 64)
+        run = lambda: fa.launch_cross_fwd_heads(lib, stream, qk0, qk1, v0, v1, mq, mk, 0.125)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    if kernel in ("attention_packed", "attention_heads"):
+        out, lse = first
+        assert float(out[3].abs().max()) == 0.0 and float(lse[3].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("b,h,w", [(2, 64, 96), (1, 100, 76), (3, 480, 640)])
 def test_block0_matches_plain(gen, b, h, w):
     """K8 against its plain version: tile-aligned, ragged and the main shape,

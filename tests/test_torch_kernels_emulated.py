@@ -128,7 +128,7 @@ def _close(out, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype,masked", [(torch.float32, True), (torch.bfloat16, True),
-                                          (torch.bfloat16, False)])
+                                          (torch.bfloat16, False), (torch.float32, False)])
 def test_block_kernels_match_plain(libs, dtype, masked):
     gen = torch.Generator().manual_seed(int(masked) + 2 * (dtype == torch.bfloat16))
     s, n = 2, 72
@@ -150,15 +150,21 @@ def test_block_kernels_match_plain(libs, dtype, masked):
     _close(out, lb.cross_block(x, mask, *w, masked=masked), dtype)
 
 
-@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("masked", [False, True, "padded"])
 def test_log_assignment_kernels_match_plain(libs, masked):
-    gen = torch.Generator().manual_seed(7 + masked)
+    """K4 at a ragged (M, N), two 64 x 64 tiles each way; "padded": batch
+    element 1 has no valid row past 63 (a row tile half padded) and batch
+    element 0 no valid column. Two calls give bit-identical outputs."""
+    gen = torch.Generator().manual_seed(7 + (masked is True))
     b, m, n, d = 2, 70, 90, 64
     d0 = torch.randn(b, m, d, generator=gen) / d**0.25
     d1 = torch.randn(b, n, d, generator=gen) / d**0.25
     z0, z1 = torch.randn(b, m, generator=gen), torch.randn(b, n, generator=gen)
     masks = (torch.rand(b, m, generator=gen) > 0.25,
              torch.rand(b, n, generator=gen) > 0.25) if masked else (None, None)
+    if masked == "padded":
+        masks[0][1, 64:] = False
+        masks[1][0] = False
     out = la.launch_log_assignment(libs["log_assignment"], None, d0, d1, z0, z1, *masks)
     ref = la.log_assignment(d0, d1, z0, z1, *masks)
     for o, r in zip(out, ref):
@@ -166,6 +172,8 @@ def test_log_assignment_kernels_match_plain(libs, masked):
             torch.testing.assert_close(o, r, atol=0, rtol=0)
         else:
             torch.testing.assert_close(o, r, atol=2e-5, rtol=1e-5)
+    again = la.launch_log_assignment(libs["log_assignment"], None, d0, d1, z0, z1, *masks)
+    assert all(torch.equal(o, a) for o, a in zip(out, again))
 
 
 # ----------------------------------------------------- training attention
@@ -224,6 +232,83 @@ def test_cross_attention_kernels_match_plain(libs, dtype):
     m0, m1 = plain.cross_attention_bidirectional_packed(qk0, qk1, v0, v1, mask0, mask1, AH)
     _close(o0, m0, dtype)
     _close(o1, m1, dtype)
+
+
+def _lse_reference(q, k, mq, mk, scale):
+    """Log-sum-exp of the scaled logits over the valid keys, per-head layout
+    (S, H, N, 64); 0 for an invalid query row and for a set without a valid
+    key, as the forward kernels write it."""
+    logits = torch.einsum("shid,shjd->shij", q.float(), k.float()) * scale
+    lse = torch.logsumexp(logits.masked_fill(~mk[:, None, None, :], float("-inf")), -1)
+    live = mq[:, None, :] & mk.any(-1)[:, None, None]
+    return torch.where(live, lse, torch.zeros_like(lse))
+
+
+def _padded_keys(mask, sets, n):
+    """A ~70% valid mask whose second-last set has no valid key past 63 (its
+    later key tiles hold none) and whose last set has none at all."""
+    m = mask(sets, n)
+    m[-2, 64:] = False
+    m[-1] = False
+    return m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["attention_packed", "cross_stacked", "cross_pair",
+                                    "attention_heads", "cross_heads", "block"])
+def test_forward_kernels_skip_key_tiles_without_a_valid_key(libs, kernel, dtype):
+    """Every forward of the tile (K5, K6b, K6a, K7a, K7c, the block
+    attention) with whole key tiles masked: 150 keys, so three 64-key tiles,
+    of which a set's last two, or all three, hold no valid key and are
+    skipped. Against the plain versions; queries that see no valid key get
+    exact zero rows, and (K5, K7a) lse 0."""
+    _, rn, mask = _attn_inputs(dtype, 70)
+    lib = libs["attention"]
+    nq, nk = 70, 150
+    if kernel in ("attention_packed", "attention_heads"):
+        shape = (lambda n: (2, AH, n, 64)) if kernel == "attention_heads" else (lambda n: (2, n, AD))
+        q, k, v = rn(*shape(nq)), rn(*shape(nk)), rn(*shape(nk))
+        mq, mk = mask(2, nq), _padded_keys(mask, 2, nk)
+        if kernel == "attention_heads":
+            out, lse = fa.launch_attention_fwd_heads(lib, None, q, k, v, mq, mk, SCALE)
+            _close(out, plain.attention_heads(q, k, v, mq, mk, SCALE), dtype)
+            heads = lambda t: t
+        else:
+            out, lse = fa.launch_attention_fwd(lib, None, q, k, v, mq, mk, AH, SCALE)
+            _close(out, plain.masked_attention_packed(q, k, v, mq, mk, AH, SCALE), dtype)
+            heads = lambda t: t.reshape(2, -1, AH, 64).transpose(1, 2)
+        _close(lse, _lse_reference(heads(q), heads(k), mq, mk, SCALE), torch.float32)
+        assert float(out[1].float().abs().max()) == 0.0 and float(lse[1].abs().max()) == 0.0
+        return
+    if kernel in ("cross_stacked", "block"):  # two pairs: sets (0, 2) and (1, 3)
+        qk, v, m = rn(4, nk, AD), rn(4, nk, AD), _padded_keys(mask, 4, nk)
+        if kernel == "block":
+            run, out = lb._attention_step(libs["lightglue_block"], None, qk, qk, v, m, AH, 2,
+                                          SCALE)
+            run()
+        else:
+            out, _ = fa.launch_cross_fwd_stacked(lib, None, qk, v, m, AH, SCALE)
+        partner = [2, 3, 0, 1]
+        ref = plain.masked_attention_packed(qk, qk[partner], v[partner], m, m[partner], AH,
+                                            SCALE)
+        _close(out, ref, dtype)
+        assert float(out[1].float().abs().max()) == 0.0  # its partner, set 3, has no key
+        return
+    heads = kernel == "cross_heads"
+    shape = (lambda n: (2, AH, n, 64)) if heads else (lambda n: (2, n, AD))
+    qk0, v0, qk1, v1 = rn(*shape(nq)), rn(*shape(nq)), rn(*shape(nk)), rn(*shape(nk))
+    mask0, mask1 = mask(2, nq), _padded_keys(mask, 2, nk)
+    if heads:
+        o0, o1, _, _ = fa.launch_cross_fwd_heads(lib, None, qk0, qk1, v0, v1, mask0, mask1,
+                                                 SCALE)
+        m0, m1 = plain.cross_attention_heads(qk0, qk1, v0, v1, mask0, mask1)
+    else:
+        o0, o1, _, _ = fa.launch_cross_fwd_pair(lib, None, qk0, qk1, v0, v1, mask0, mask1, AH,
+                                                SCALE)
+        m0, m1 = plain.cross_attention_bidirectional_packed(qk0, qk1, v0, v1, mask0, mask1, AH)
+    _close(o0, m0, dtype)
+    _close(o1, m1, dtype)
+    assert float(o0[1].float().abs().max()) == 0.0
 
 
 # ------------------------------------------------------ the per-head entries
