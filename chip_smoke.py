@@ -9,10 +9,12 @@ adaptive, training) and SuperGlue on one GPU.
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel of gluefactory_tpu_torch/csrc with nvcc (sm_90a);
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes (the block kernels also at N = 512 and 1000),
-     with its time, the plain version's, a library yardstick's and the bound
-     the work allows; for the blocks also the time of each of their three
-     launches and of the same block as bf16 torch calls. The build log's
+     the main path's shapes (the block kernels also at N = 512 and 1000)
+     and at those of phase 8 (the fp32 blocks at N = 512 and 256, K4 at
+     512 and 256 a side, K8 in the 864 x 480 eval box), with its time, the
+     plain version's, a library yardstick's and the bound the work allows;
+     for the blocks also the time of each of their three launches and of
+     the same block as bf16 torch calls. The build log's
      registers and spills are printed, and the bf16 block kernels, the
      attention forwards (K5, K6a, K6b, K7a, K7c and the fp32 block
      attention) and backward (K7b), block 0 (K8) and the log assignment's
@@ -37,7 +39,17 @@ adaptive, training) and SuperGlue on one GPU.
      the per-layer host read);
   7. SuperGlue (9 layer pairs x 256, 50 Sinkhorn iterations, seeded
      weights) on SuperPoint-open's features at batch 8: 36 per-head
-     attention launches a forward, agreement with the plain path.
+     attention launches a forward, agreement with the plain path;
+  8. HPatches evaluation: a 50-pair tree in HPatches' layout (4
+     illumination and 6 viewpoint scenes, two of them resized by the
+     preprocessing) through `HPatchesPipeline(conf).run` with the RANSAC
+     threshold sweep, for full-depth LightGlue in fp32 (K1 = K2 = 9, K4 = 1
+     launches a pair), the nearest-neighbour baseline (LightGlue's DLT AUC
+     at 3 px above it, its median DLT error under 10 px) and adaptive
+     LightGlue with the fused block 0 (the exit-layer histogram); every
+     summary finite; the card's RANSAC core against the CPU's on the same
+     noise (H within 0.05 px on 8 pairs); export pairs/s, eval seconds, one
+     RANSAC call's ms.
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -113,29 +125,31 @@ def torch_finite(t) -> bool:
 
 
 # ------------------------------------------------------------------ phase 3
-def block_inputs(gen, s, n, masked_frac=0.2):
+def block_inputs(gen, s, n, masked_frac=0.2, dt="bfloat16"):
     import torch
 
-    dev = "cuda"
-    x = torch.randn(s, n, D, generator=gen, device=dev).bfloat16()
+    dev, dtype = "cuda", getattr(torch, dt)
+    x = torch.randn(s, n, D, generator=gen, device=dev).to(dtype)
     ang = torch.rand(s, n, DH // 2, generator=gen, device=dev) * 6
-    cos = torch.cos(ang).repeat_interleave(2, -1).bfloat16().contiguous()
-    sin = torch.sin(ang).repeat_interleave(2, -1).bfloat16().contiguous()
+    cos = torch.cos(ang).repeat_interleave(2, -1).to(dtype).contiguous()
+    sin = torch.sin(ang).repeat_interleave(2, -1).to(dtype).contiguous()
     mask = torch.rand(s, n, generator=gen, device=dev) > masked_frac
     return x, cos, sin, mask
 
 
-def block_weights(gen, cross):
+def block_weights(gen, cross, dt="bfloat16"):
     import torch
 
+    dtype = getattr(torch, dt)
+
     def w(din, dout):
-        return (torch.randn(din, dout, generator=gen, device="cuda") * din**-0.5).bfloat16()
+        return (torch.randn(din, dout, generator=gen, device="cuda") * din**-0.5).to(dtype)
 
     def b(k):
-        return (0.1 * torch.randn(k, generator=gen, device="cuda")).bfloat16()
+        return (0.1 * torch.randn(k, generator=gen, device="cuda")).to(dtype)
 
     pre = [w(D, D), b(D), w(D, D), b(D)] if cross else [w(D, 3 * D), b(3 * D)]
-    ln = (1 + 0.1 * torch.randn(2 * D, generator=gen, device="cuda")).bfloat16()
+    ln = (1 + 0.1 * torch.randn(2 * D, generator=gen, device="cuda")).to(dtype)
     return pre + [w(D, D), b(D), w(2 * D, 2 * D), b(2 * D), ln, b(2 * D), w(2 * D, D), b(D)]
 
 
@@ -167,10 +181,10 @@ def torch_block(kind, x, cos, sin, mask, w):
     return x + (h @ w2 + b2)
 
 
-def check_block(kind, s, n, seed, also=()):
-    """Self or cross block: kernel vs plain, masked and unmasked, at N = n
-    and at each N of `also` (same S); times of the block, of each of its
-    three launches, of the plain version and of two yardsticks."""
+def check_block(kind, s, n, seed, also=(), dt="bfloat16"):
+    """Self or cross block in `dt`: kernel vs plain, masked and unmasked, at
+    N = n and at each N of `also` (same S); times of the block, of each of
+    its three launches, of the plain version and of two yardsticks."""
     import torch
     import torch.nn.functional as F
 
@@ -178,10 +192,10 @@ def check_block(kind, s, n, seed, also=()):
     from gluefactory_tpu_torch.ops import lightglue_block as lb
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    w = block_weights(gen, cross=kind == "cross")
+    w = block_weights(gen, cross=kind == "cross", dt=dt)
     err = 0.0
     for nn in (*also, n):
-        x, cos, sin, mask = block_inputs(gen, s, nn)
+        x, cos, sin, mask = block_inputs(gen, s, nn, dt=dt)
         if kind == "self":
             kern = lambda m: lb.fused_self_block(x, cos, sin, mask, *w, masked=m)
             plain = lambda m: lb.self_block(x, cos, sin, mask, *w, masked=m)
@@ -191,8 +205,7 @@ def check_block(kind, s, n, seed, also=()):
         for m in (False, True):
             out = kern(m)
             torch.cuda.synchronize()
-            err = max(err, compare(out, plain(m), "bfloat16",
-                                   f"{kind} block s={s} n={nn} masked={m}"))
+            err = max(err, compare(out, plain(m), dt, f"{kind} block s={s} n={nn} masked={m}"))
     ms = timed(lambda: kern(True), 10)
     plain_ms = timed(lambda: plain(True), 3, warmup=1)
 
@@ -210,29 +223,31 @@ def check_block(kind, s, n, seed, also=()):
     other = torch.arange(s, device="cuda")
     if kind == "cross":
         other = (other + s // 2) % s
-    q = torch.randn(s, H, n, DH, generator=gen, device="cuda").bfloat16()
-    kv = torch.randn(s, H, n, DH, generator=gen, device="cuda").bfloat16()
+    q = torch.randn(s, H, n, DH, generator=gen, device="cuda").to(x.dtype)
+    kv = torch.randn(s, H, n, DH, generator=gen, device="cuda").to(x.dtype)
     amask = mask[other][:, None, None, :]
     lib_ms = timed(lambda: F.scaled_dot_product_attention(q, kv, kv, attn_mask=amask), 10)
 
     nv = mask.sum(1).double()
+    es = x.element_size()
     if kind == "self":
         flops = s * n * 20 * D * D + 4 * D * float((nv * nv).sum())
-        wbytes = (3 * D * D + D * D + 4 * D * D + 2 * D * D + 3 * D + D + 6 * D) * 2
-        nbytes = 2 * s * n * D * 2 + 2 * s * n * DH * 2 + s * n + wbytes
+        wbytes = (3 * D * D + D * D + 4 * D * D + 2 * D * D + 3 * D + D + 6 * D) * es
+        nbytes = 2 * s * n * D * es + 2 * s * n * DH * es + s * n + wbytes
     else:
         b = s // 2
         flops = s * n * 18 * D * D + 6 * D * float((nv[:b] * nv[b:]).sum())
-        wbytes = (2 * D * D + D * D + 4 * D * D + 2 * D * D + 2 * D + D + 6 * D) * 2
-        nbytes = 2 * s * n * D * 2 + s * n + wbytes
-    bms, by = bound(flops, nbytes, PEAK_BF16)
+        wbytes = (2 * D * D + D * D + 4 * D * D + 2 * D * D + 2 * D + D + 6 * D) * es
+        nbytes = 2 * s * n * D * es + s * n + wbytes
+    bms, by = bound(flops, nbytes, PEAK_BF16 if dt == "bfloat16" else PEAK_FP32_PRODUCT)
     ns = ", ".join(str(k) for k in (*also, n))
-    log(f"[kernel] {kind} block ({s}, {n}, 256) bf16: {ms:.4f} ms, {flops / ms / 1e9:.1f} "
+    tag = "bf16" if dt == "bfloat16" else "f32"
+    log(f"[kernel] {kind} block ({s}, {n}, 256) {tag}: {ms:.4f} ms, {flops / ms / 1e9:.1f} "
         f"TFLOP/s; launches proj {split[0]:.4f}, attention {split[1]:.4f}, FFN tail "
-        f"{split[2]:.4f} ms; the block as bf16 torch calls {torch_ms:.4f} ms; held against "
+        f"{split[2]:.4f} ms; the block as {tag} torch calls {torch_ms:.4f} ms; held against "
         f"the plain version at N = {ns}, masked and unmasked")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bms, bound_by=by, tol="atol %g + rtol %g" % TOL["bfloat16"],
+                bound_ms=bms, bound_by=by, tol="atol %g + rtol %g" % TOL[dt],
                 split_ms=split, torch_ms=torch_ms)
 
 
@@ -546,18 +561,36 @@ def synthetic_pair(seed, b, h, w, difficulty=1.0):
     per-pair homographies H (image0 -> image1), made with grid_sample."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = texture(gen, b, h, w)
+    hs = torch.from_numpy(np.stack([homography(seed * 100 + i, h, w, difficulty)
+                                    for i in range(b)]))
+    hs = hs.to("cuda")
+    to_bhwc = lambda t: t.permute(0, 2, 3, 1).contiguous()
+    return to_bhwc(img), to_bhwc(warp(img, hs)), hs
+
+
+def texture(gen, b, h, w):
+    """(B, 1, H, W) images in [0, 1]: bicubic low frequencies plus blocks."""
+    import torch
+    import torch.nn.functional as F
+
     coarse = torch.rand(b, 1, h // 24, w // 24, generator=gen, device="cuda")
     img = F.interpolate(coarse, size=(h, w), mode="bicubic", align_corners=False)
     fine = torch.rand(b, 1, h // 6, w // 6, generator=gen, device="cuda")
     img = img + 0.6 * F.interpolate(fine, size=(h, w), mode="nearest")
-    img = (img - img.amin((2, 3), keepdim=True)) / (
+    return (img - img.amin((2, 3), keepdim=True)) / (
         img.amax((2, 3), keepdim=True) - img.amin((2, 3), keepdim=True))
-    hs = torch.from_numpy(np.stack([homography(seed * 100 + i, h, w, difficulty)
-                                    for i in range(b)]))
-    hs = hs.to("cuda")
+
+
+def warp(img, hs):
+    """(B, 1, H, W) images warped by (B, 3, 3) float64 homographies
+    (image -> warped), bilinear, zeros outside."""
+    import torch
+    import torch.nn.functional as F
+
+    b, _, h, w = img.shape
     ys, xs = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float64) + 0.5,
                             torch.arange(w, device="cuda", dtype=torch.float64) + 0.5,
                             indexing="ij")
@@ -566,9 +599,7 @@ def synthetic_pair(seed, b, h, w, difficulty=1.0):
     src = src[..., :2] / src[..., 2:]
     grid = torch.stack([src[..., 0] / w * 2 - 1, src[..., 1] / h * 2 - 1], -1)
     grid = grid.reshape(b, h, w, 2).float()
-    img1 = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
-    to_bhwc = lambda t: t.permute(0, 2, 3, 1).contiguous()
-    return to_bhwc(img), to_bhwc(img1), hs
+    return F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
 
 
 def pipeline(k, extractor=None, matcher=None):
@@ -972,11 +1003,12 @@ def check_heads_cross(seed):
 
 def check_block0(seed):
     """K8 with the committed weights of SuperPoint's first block against its
-    plain version, at the two shapes the serving path gives it: one view of a
-    batch-8 pair batch, (8, 480, 640, 1), which the row times and bounds, and
-    the two stacked views of a single pair, (2, 480, 640, 1). The yardstick is
-    the same block through the port's bf16 cuDNN trunk, which the fused path
-    never calls."""
+    plain version, at the shapes the serving and eval paths give it: one view
+    of a batch-8 pair batch, (8, 480, 640, 1), which the row times and bounds,
+    the two stacked views of a single pair, (2, 480, 640, 1), and a pair in
+    the HPatches eval box, (2, 480, 864, 1): views 640 and 800 wide, zero
+    padding to their right. The yardstick is the same block through the
+    port's bf16 cuDNN trunk, which the fused path never calls."""
     import torch
     import torch.nn.functional as F
 
@@ -1002,6 +1034,12 @@ def check_block0(seed):
     err1, mean1, ms1 = held(pair)
     log(f"[kernel] K8 at (2, 480, 640, 1), the stacked views of one pair: max abs err "
         f"{err1:.3g}, mean {mean1:.3g}; {ms1:.4f} ms")
+    box = torch.zeros(2, 480, 864, 1, device="cuda")
+    box[0, :, :640] = img0[0]
+    box[1, :, :800] = synthetic_pair(seed + 1, 1, 480, 800)[1][0]
+    err2, mean2, ms2 = held(box)
+    log(f"[kernel] K8 at (2, 480, 864, 1), one pair in the HPatches eval box (views 640 and "
+        f"800 wide, zero padding): max abs err {err2:.3g}, mean {mean2:.3g}; {ms2:.4f} ms")
     image = img0.contiguous()
     err, mean, ms = held(image)
     plain_ms = timed(lambda: b0.block0_plain(image, *weights), 3, warmup=1)
@@ -1014,7 +1052,7 @@ def check_block0(seed):
     bms, by = bound(flops, nbytes, PEAK_BF16)
     log(f"[kernel] K8 at (8, 480, 640, 1): mean abs err {mean:.3g}; "
         f"{flops / ms / 1e9:.1f} TFLOP/s")
-    return dict(max_abs_err=max(err, err1), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+    return dict(max_abs_err=max(err, err1, err2), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bms, bound_by=by,
                 tol="atol %g + rtol %g, mean abs err <= 2e-3" % TOL["bfloat16"])
 
@@ -1270,6 +1308,199 @@ def run_superglue():
     return launches, ms
 
 
+# ------------------------------------------------------------------ phase 8
+# the HPatches-layout tree: (scene, kind, height, width); 5 pairs a scene
+HP_SCENES = ([(f"i_synth{i}", "i", 480, 640) for i in range(4)]
+             + [(f"v_synth{i}", "v", 480, 640) for i in range(4)]
+             + [("v_wide", "v", 420, 700), ("v_large", "v", 600, 800)])
+HP_EXTRACTOR = {"name": "superpoint_open", "max_num_keypoints": 512,
+                "detection_threshold": 0.005, "dtype": None}
+HP_LIGHTGLUE = {"name": "lightglue", "filter_threshold": 0.1, "collect_layers": False}
+
+
+def write_ppm(path, img):
+    """A binary PPM (P6) of an (H, W) image in [0, 1], grey in all channels."""
+    import numpy as np
+
+    h, w = img.shape
+    rgb = np.repeat((np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)[..., None], 3, -1)
+    path.write_bytes(b"P6\n%d %d\n255\n" % (w, h) + rgb.tobytes())
+
+
+def build_hpatches_tree(root):
+    """HPatches' on-disk layout under `root`: <scene>/{1..6}.ppm and H_1_{2..6};
+    i_* scenes keep the geometry (identity H) under gain and bias jitter,
+    v_* scenes are seeded homography warps of image 1 (grid_sample)."""
+    import numpy as np
+    import torch
+
+    for k, (scene, kind, h, w) in enumerate(HP_SCENES):
+        sdir = root / scene
+        sdir.mkdir(parents=True)
+        gen = torch.Generator(device="cuda").manual_seed(100 + k)
+        base = texture(gen, 1, h, w)
+        if kind == "i":
+            hs = torch.eye(3, dtype=torch.float64, device="cuda").expand(5, 3, 3)
+            gain = 0.7 + 0.6 * torch.rand(5, 1, 1, 1, generator=gen, device="cuda")
+            bias = 0.1 * torch.rand(5, 1, 1, 1, generator=gen, device="cuda") - 0.05
+            imgs = (base * gain + bias).clamp(0, 1)
+        else:
+            hs = torch.from_numpy(np.stack([homography(1000 * k + i, h, w)
+                                            for i in range(5)])).cuda()
+            imgs = warp(base.expand(5, 1, h, w).contiguous(), hs)
+        write_ppm(sdir / "1.ppm", base[0, 0].cpu().numpy())
+        for i in range(5):
+            write_ppm(sdir / f"{i + 2}.ppm", imgs[i, 0].cpu().numpy())
+            np.savetxt(sdir / f"H_1_{i + 2}", hs[i].cpu().numpy())
+
+
+def hpatches_counters():
+    from gluefactory_tpu_torch.ops import block0_conv as b0
+    from gluefactory_tpu_torch.ops import lightglue_block as lb
+    from gluefactory_tpu_torch.ops import log_assignment as la
+
+    return b0.block0_fused, lb.fused_self_block, lb.fused_cross_block, la.fused_log_assignment
+
+
+def run_hpatches(root, out, name, matcher, extractor=None):
+    """HPatchesPipeline(conf).run on the card with the K8, K1, K2, K4 counts
+    set to 0 just before and read just after; returns (summaries, pipeline,
+    counts)."""
+    import torch
+
+    from gluefactory_tpu_torch.eval.hpatches import HPatchesPipeline
+    from gluefactory_tpu_torch.weights import HERMETIC
+
+    conf = {"data": {"data_dir": str(root)}, "eval": {"ransac_th": -1},
+            "model": {"extractor": {**HP_EXTRACTOR, **(extractor or {})}, "matcher": matcher,
+                      "checkpoint": str(HERMETIC)}}
+    pipe = HPatchesPipeline(conf, device="cuda")
+    torch.cuda.synchronize()
+    for fn in hpatches_counters():
+        fn.launches = 0
+    summaries, _, _ = pipe.run(out / name)
+    torch.cuda.synchronize()
+    counts = [fn.launches for fn in hpatches_counters()]
+    n = len(HP_SCENES) * 5
+    log(f"[hpatches {name}] export {n / pipe.timings['export_s']:.2f} pairs/s "
+        f"({pipe.timings['export_s']:.2f} s for {n} pairs), eval phase "
+        f"{pipe.timings['eval_s']:.2f} s; launches K8 {counts[0]}, K1 {counts[1]}, "
+        f"K2 {counts[2]}, K4 {counts[3]}")
+    log(f"[hpatches {name}] summaries " + json.dumps(summaries))
+    bad = [k for k, v in summaries.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"hpatches {name}: non-finite summaries {bad}")
+    return summaries, pipe, counts
+
+
+def check_ransac_devices(pred_file, th=3.0, pairs=8):
+    """The card's RANSAC core against the CPU's on the same Gumbel noise, on
+    the matches of `pairs` exported pairs; returns the median ms of one
+    estimator call on the card (host clock, synchronised) at one threshold
+    and at the sweep of six."""
+    import numpy as np
+    import torch
+
+    from gluefactory_tpu_torch.estimators.homography.torch_ransac import (
+        TorchRansacHomography, pad_to_bucket)
+    from gluefactory_tpu_torch.estimators.ransac import gumbel, ransac_homography_core
+    from gluefactory_tpu_torch.eval.utils import get_matches_scores
+    from gluefactory_tpu_torch.geometry.homography import homography_corner_error
+    from gluefactory_tpu_torch.utils.export_predictions import load_predictions
+
+    preds = load_predictions(pred_file)
+    names = sorted(preds)[::max(len(preds) // pairs, 1)][:pairs]
+    worst, sizes = 0.0, []
+    for k, name in enumerate(names):
+        p = preds[name]
+        pts0, pts1, _ = get_matches_scores(p["keypoints0"], p["keypoints1"], p["matches0"],
+                                           p["matching_scores0"])
+        k0, k1, valid = pad_to_bucket(torch.from_numpy(pts0), torch.from_numpy(pts1),
+                                      torch.ones(len(pts0), dtype=torch.bool))
+        gen = torch.Generator().manual_seed(k)
+        noise = [gumbel((1024, k0.shape[0]), gen, "cpu") for _ in range(2)]
+        cpu = ransac_homography_core(k0, k1, valid, noise, th)
+        dev = ransac_homography_core(k0.cuda(), k1.cuda(), valid.cuda(),
+                                     [g.cuda() for g in noise], th)
+        size = torch.tensor([864.0, 480.0], dtype=torch.float64)
+        diff = float(homography_corner_error(dev.model.cpu().double(), cpu.model.double(), size))
+        worst = max(worst, diff)
+        sizes.append(len(pts0))
+        if diff > 0.05 or bool(dev.success) != bool(cpu.success):
+            fail(f"RANSAC on the card against the CPU, pair {name}: H {diff:.4f} px apart "
+                 f"(> 0.05) or success {bool(dev.success)} != {bool(cpu.success)}")
+    log(f"[hpatches ransac] the card's RANSAC core and the CPU's, same noise, {len(names)} "
+        f"pairs ({min(sizes)}-{max(sizes)} matches): H at most {worst:.2e} px apart, "
+        f"success equal")
+    # one estimator call (K = 1024, two rounds) on the card, on the last pair's matches,
+    # at one threshold and at the eval's sweep of six
+    data = {"m_kpts0": pts0, "m_kpts1": pts1}
+    out = []
+    for ths in (th, [0.5, 1.0, 1.5, 2.0, 2.5, 3.0]):
+        est = TorchRansacHomography({"ransac_th": ths}, device="cuda")
+        times = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est(data)["success"].cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+        times = sorted(times[2:])
+        out.append(times[len(times) // 2])
+        log(f"[hpatches ransac] one call on the card, {len(pts0)} matches (bucket "
+            f"{k0.shape[0]}), K = 1024, two rounds, {np.size(ths)} threshold(s): median "
+            f"{out[-1]:.2f} ms of 10 ({times[0]:.2f}-{times[-1]:.2f})")
+    return out
+
+
+def run_hpatches_eval():
+    """Phase 8; returns the K1, K2, K4 launches of the full-depth run."""
+    import collections
+    import shutil
+
+    import numpy as np
+
+    from gluefactory_tpu_torch.utils.export_predictions import load_predictions
+
+    work = ROOT / "outputs" / "chip_smoke_hpatches"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        data = work / "data" / "hpatches-sequences-release"
+        build_hpatches_tree(data)
+        n = len(HP_SCENES) * 5
+        log(f"[hpatches] tree of {len(HP_SCENES)} scenes, {n} pairs, written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        s_lg, lg, counts = run_hpatches(data, work, "lightglue", HP_LIGHTGLUE)
+        if counts != [0, 9 * n, 9 * n, n]:
+            fail(f"hpatches lightglue: expected K1 = K2 = 9 and K4 = 1 launches a pair and no "
+                 f"K8, got {counts} over {n} pairs")
+        s_nn, _, _ = run_hpatches(data, work, "nn", {"name": "nearest_neighbor_matcher",
+                                                     "mutual_check": True})
+        if not (s_lg["H_error_dlt@3px"] > s_nn["H_error_dlt@3px"] and s_lg["mH_error_dlt"] < 10):
+            fail(f"hpatches: LightGlue's H_error_dlt@3px {s_lg['H_error_dlt@3px']} not above "
+                 f"NN's {s_nn['H_error_dlt@3px']}, or mH_error_dlt {s_lg['mH_error_dlt']} >= 10")
+        _, ad, ad_counts = run_hpatches(
+            data, work, "adaptive", {**HP_LIGHTGLUE, **ADAPTIVE}, {"fused_block0": True})
+        stops = [int(p["stop_layer"]) for p in
+                 load_predictions(work / "adaptive" / "predictions.npz").values()]
+        hist = collections.Counter(stops)
+        log("[hpatches adaptive] stop_layer histogram over the pairs: " + ", ".join(
+            f"{layer}: {hist[layer]}" for layer in sorted(hist)) + f"; mean {np.mean(stops):.2f}")
+        layers = sum(s + 1 for s in stops)
+        if ad_counts != [n, layers, layers, n]:
+            fail(f"hpatches adaptive: expected K8 = K4 = {n}, K1 = K2 = {layers} "
+                 f"(stop_layer + 1 a pair), got {ad_counts}")
+        one_ms, sweep_ms = check_ransac_devices(work / "lightglue" / "predictions.npz")
+        export_ms = lg.timings["export_s"] / n * 1e3
+        eval_ms = lg.timings["eval_s"] / n * 1e3
+        log(f"[hpatches] lightglue, per pair: export {export_ms:.2f} ms, eval {eval_ms:.2f} ms "
+            f"(precision, 1 DLT and one RANSAC call for the 6 thresholds, {sweep_ms:.2f} ms; "
+            f"one threshold alone {one_ms:.2f} ms)")
+        return {"K1 eval": counts[1], "K2 eval": counts[2], "K4 eval": counts[3]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     global TRAIN_B
@@ -1320,6 +1551,7 @@ def main() -> int:
         ("K3b fused_cross_block_v2 (8, 2048, 256) bf16", "cross", 8, 2048, f"{pal_blk}:717", src_blk),
     ]
     kernels = []
+    lb_names = {"self": "fused_self_block", "cross": "fused_cross_block"}
     for i, (name, kind_, s, n, replaces, src) in enumerate(rows):
         # the compact width of the adaptive path and a ragged N beside the main shape
         r = check_block(kind_, s, n, seed=i, also=(512, 1000) if n == 1024 else ())
@@ -1330,6 +1562,20 @@ def main() -> int:
         kernels.append(dict(
             name=f"{tag} fused_log_assignment B={b} M=N={n} f32", route="cuda", source=src_asg,
             replaces="gluefactory_tpu/ops/pallas_assignment.py:200,225", **r))
+    # the HPatches eval path (phase 8): fp32 blocks and assignment, one pair at a time
+    # the adaptive eval run's compact width, 256 a side at 512 keypoints, beside the main shape
+    for kind_, key, line in (("self", "K1", 326), ("cross", "K2", 393)):
+        r = check_block(kind_, 2, 512, seed=30 + line, also=(256,), dt="float32")
+        kernels.append(dict(name=f"{key} {lb_names[kind_]} (2, 512, 256) f32, HPatches eval",
+                            key=f"{key} eval", route="cuda", source=src_blk,
+                            replaces=f"{pal_blk}:{line}", **r))
+    kernels.append(dict(
+        name="K4 fused_log_assignment B=1 M=N=512 f32, HPatches eval", key="K4 eval",
+        route="cuda", source=src_asg, replaces="gluefactory_tpu/ops/pallas_assignment.py:200,225",
+        **check_assignment(1, 512, 512, seed=33)))
+    compact = check_assignment(1, 256, 256, seed=34)
+    log(f"[kernel] K4 B=1 M=N=256 f32 (the adaptive HPatches run's compact width): max abs err "
+        f"{compact['max_abs_err']:.3g}; {compact['ms']:.4f} ms")
     att = {**check_self_attention(20), **check_cross_attention("stacked", 21),
            **check_cross_attention("packed", 22)}
     s2, n5, n6 = 2 * TRAIN_B, TRAIN_N, TRAIN_N1
@@ -1406,6 +1652,10 @@ def main() -> int:
     k7a_ms = next(k["ms"] for k in kernels if k.get("key") == "K7a")
     log(f"[superglue] K7a kernels (kernel_ms x launches): {k7a_ms * per_step['K7a']:.2f} ms, "
         f"{k7a_ms * per_step['K7a'] / sg_ms:.3f} of the forward")
+    torch.cuda.empty_cache()
+
+    # 8. the HPatches evaluation slice
+    per_step.update(run_hpatches_eval())
     for k in kernels:
         if "key" in k:
             k["launches"] = per_step[k["key"]]
@@ -1417,7 +1667,7 @@ def main() -> int:
         more = ""
         if "split_ms" in k:
             more = (" split proj/attention/ffn " + "/".join(f"{t:.4f}" for t in k["split_ms"])
-                    + f" torch_bf16_ms {k['torch_ms']:.4f}")
+                    + f" torch_calls_ms {k['torch_ms']:.4f}")
         log(f"[kernel] {k['name']}: kernel_ms {k['ms']:.4f} plain_ms {k['plain_ms']:.4f} "
             f"library_ms {lib} bound_ms {k['bound_ms']:.4f} ({k['bound_by']}) "
             f"launches {k['launches']}{more}")

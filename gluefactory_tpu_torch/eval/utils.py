@@ -1,0 +1,125 @@
+"""Per-pair evaluation of homography benchmarks (counterpart of
+gluefactory_tpu/eval/utils.py:26-197; the epipolar and relative-pose
+functions wait for the relative-pose benchmarks, ROADMAP Queue 1 item 6).
+
+Predictions come in as numpy arrays (the export file); the selection of the
+matched pairs is numpy on the host, the geometry (symmetric error, weighted
+DLT, RANSAC, corner error) runs on `device`, the card unless the caller asks
+for the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..estimators.base_estimator import load_estimator
+from ..geometry.homography import homography_corner_error, solve_homography_dlt, sym_homography_error
+from ..utils.tools import AUCMetric
+
+
+def get_matches_scores(kpts0, kpts1, matches0, mscores0):
+    """The matched keypoint pairs and their scores (host, numpy)."""
+    kpts0, kpts1 = np.asarray(kpts0), np.asarray(kpts1)
+    matches0, mscores0 = np.asarray(matches0), np.asarray(mscores0)
+    m0 = matches0 > -1
+    return kpts0[m0], kpts1[matches0[m0]], mscores0[m0]
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def _corner_error(H, data, device) -> torch.Tensor:
+    """Corner errors of (..., 3, 3) homographies against the pair's ground
+    truth, over view 0's image size: (...)."""
+    size = np.asarray(data["view0"]["image_size"]).reshape(-1)[:2]
+    return homography_corner_error(H, _f32(data["H_0to1"], device), _f32(size, device))
+
+
+def eval_matches_homography(data: dict, pred: dict, device: Any = "cuda") -> dict:
+    """Match precision at 1 and 3 px against the ground-truth homography."""
+    kp0, kp1 = pred["keypoints0"], pred["keypoints1"]
+    pts0, pts1, _ = get_matches_scores(kp0, kp1, pred["matches0"], pred["matching_scores0"])
+    if len(pts0) == 0:
+        err = np.zeros(0)
+    else:
+        err = sym_homography_error(_f32(pts0, device)[None], _f32(pts1, device)[None],
+                                   _f32(data["H_0to1"], device)[None])[0].cpu().numpy()
+    return {
+        "prec@1px": float(np.nan_to_num((err < 1).mean() if len(err) else 0.0)),
+        "prec@3px": float(np.nan_to_num((err < 3).mean() if len(err) else 0.0)),
+        "num_matches": int(len(pts0)),
+        "num_keypoints": (np.asarray(kp0).shape[-2] + np.asarray(kp1).shape[-2]) / 2,
+    }
+
+
+def eval_homography_robust(data: dict, pred: dict, conf: dict, device: Any = "cuda") -> dict:
+    """Robust homography (RANSAC by default) at `conf["ransac_th"]` and its
+    corner error."""
+    return eval_homography_robust_sweep(data, pred, conf, [conf["ransac_th"]], device)[0]
+
+
+def eval_homography_robust_sweep(data: dict, pred: dict, conf: dict, thresholds,
+                                 device: Any = "cuda") -> list:
+    """`eval_homography_robust` at each of `thresholds`, one estimator call
+    for all of them (the same draws for every threshold, as the JAX
+    package's evaluation gives them): a list of result dicts."""
+    failed = {"H_error_ransac": float("inf"), "ransac_inl": 0, "ransac_inl%": 0.0}
+    pts0, pts1, _ = get_matches_scores(pred["keypoints0"], pred["keypoints1"],
+                                       pred["matches0"], pred["matching_scores0"])
+    if len(pts0) < 4:
+        return [dict(failed) for _ in thresholds]
+    conf = {**conf, "ransac_th": [float(t) for t in thresholds]}
+    estimator = load_estimator("homography", conf.get("estimator", "jax_ransac"))(conf, device)
+    est = estimator({"m_kpts0": pts0, "m_kpts1": pts1})
+    err = _corner_error(torch.as_tensor(est["M_0to1"], dtype=torch.float32, device=device),
+                        data, device)
+    # one transfer: success, the errors and the inliers of every threshold
+    success, err, inl = (torch.as_tensor(t).cpu().numpy() for t in (est["success"], err,
+                                                                     est["inliers"]))
+    out = []
+    for ok, e, inl_t in zip(success, err, inl.astype(bool)):
+        out.append({"H_error_ransac": float(e), "ransac_inl": int(inl_t.sum()),
+                    "ransac_inl%": float(inl_t.mean()) if len(inl_t) else 0.0}
+                   if ok else dict(failed))
+    return out
+
+
+def eval_homography_dlt(data: dict, pred: dict, device: Any = "cuda") -> dict:
+    """Score-weighted DLT homography over all matches and its corner error."""
+    pts0, pts1, scores = get_matches_scores(pred["keypoints0"], pred["keypoints1"],
+                                            pred["matches0"], pred["matching_scores0"])
+    if len(pts0) < 4:
+        return {"H_error_dlt": float("inf")}
+    H = solve_homography_dlt(_f32(pts0, device)[None], _f32(pts1, device)[None],
+                             _f32(scores, device)[None])[0]
+    e = float(_corner_error(H, data, device))
+    return {"H_error_dlt": e if np.isfinite(e) else float("inf")}
+
+
+def eval_poses(pose_results: dict, auc_ths: list, key: str, unit: str = "°"):
+    """Summarise a {threshold: {key: [per-pair errors]}} sweep: the AUC at
+    each of `auc_ths` for the threshold of best mean AUC, and the medians of
+    that threshold's per-pair results. Returns (summaries, best threshold)."""
+    pose_aucs = {th: AUCMetric(auc_ths, results_i[key]).compute()
+                 for th, results_i in pose_results.items()}
+    mAAs = {k: float(np.mean(v)) for k, v in pose_aucs.items()}
+    best_th = max(mAAs, key=mAAs.get)
+    summaries = {}
+    for i, ath in enumerate(auc_ths):
+        summaries[f"{key}@{ath}{unit}"] = pose_aucs[best_th][i]
+    summaries[f"{key}_mAA"] = mAAs[best_th]
+    for k, v in pose_results[best_th].items():
+        arr = np.array(v)
+        if np.issubdtype(arr.dtype, np.number):
+            summaries[f"m{k}"] = round(float(np.median(arr)), 3)
+    return summaries, best_th
+
+
+__all__ = [
+    "get_matches_scores", "eval_matches_homography", "eval_homography_robust",
+    "eval_homography_robust_sweep", "eval_homography_dlt", "eval_poses",
+]

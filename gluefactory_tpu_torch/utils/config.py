@@ -1,15 +1,17 @@
 """Recursive config merge (counterpart of gluefactory_tpu/utils/config.py).
 
-Only what the models need: `merge` and `to_dict`. Configs are plain dicts
-wrapped in `Config` for attribute access; nothing here imports yaml.
+Only what the models and the evaluation need: `merge`, `to_dict` and
+`parse_dotlist`. Configs are plain dicts wrapped in `Config` for attribute
+access; nothing here imports yaml (values of a dotlist are JSON).
 """
 
 from __future__ import annotations
 
 import copy
+import json
 from typing import Any, Mapping
 
-__all__ = ["Config", "merge", "to_dict"]
+__all__ = ["Config", "merge", "to_dict", "parse_dotlist"]
 
 
 def to_dict(conf: Any) -> Any:
@@ -51,3 +53,27 @@ class Config(dict):
             return self[key]
         except KeyError as e:
             raise AttributeError(key) from e
+
+
+def _parse_value(raw: str) -> Any:
+    """A dotlist value: JSON (numbers, lists, true/false/null), the Python
+    spellings True/False/None, or else the string itself."""
+    try:
+        return json.loads(raw)
+    except json.JSONDecodeError:
+        return {"True": True, "False": False, "None": None}.get(raw, raw)
+
+
+def parse_dotlist(items: list[str]) -> dict:
+    """CLI overrides like ``model.matcher.n_layers=9`` as a nested dict."""
+    out: dict = {}
+    for item in items:
+        if "=" not in item:
+            raise ValueError(f"Expected key=value, got {item!r}")
+        key, _, raw = item.partition("=")
+        node = out
+        parts = key.strip().split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = _parse_value(raw.strip())
+    return out

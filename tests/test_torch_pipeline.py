@@ -14,6 +14,8 @@ from scipy.ndimage import gaussian_filter
 
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu.models.matchers.lightglue_pretrained import load_npz_params
+from gluefactory_tpu_torch.estimators.homography.torch_ransac import TorchRansacHomography
+from gluefactory_tpu_torch.eval.hpatches import HPatchesPipeline
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.weights import HERMETIC, load_hermetic
 
@@ -62,6 +64,9 @@ def test_pipeline_matches_jax_with_hermetic_weights():
     lambda: get_model("superpoint_open")({"fused_block0": True}),
     lambda: get_model("superglue")(),
     lambda: load_hermetic(),
+    lambda: get_model("nearest_neighbor_matcher")(),
+    lambda: HPatchesPipeline(),
+    lambda: TorchRansacHomography(),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -82,8 +87,10 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "gluefactory_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     names = {p.name for p in files}
-    assert {"superglue.py", "block0_conv.py", "fused_attention.py", "lightglue.py"} <= names
+    assert {"superglue.py", "block0_conv.py", "fused_attention.py", "lightglue.py", "hpatches.py",
+            "ransac.py", "torch_ransac.py", "eval_pipeline.py", "nearest_neighbor_matcher.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "gluefactory_tpu"), (path, mod)
+            assert top not in ("jax", "jaxlib", "flax", "optax", "gluefactory_tpu", "cv2", "h5py",
+                               "yaml", "tqdm"), (path, mod)
