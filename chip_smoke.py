@@ -49,7 +49,20 @@ adaptive, training) and SuperGlue on one GPU.
      LightGlue with the fused block 0 (the exit-layer histogram); every
      summary finite; the card's RANSAC core against the CPU's on the same
      noise (H within 0.05 px on 8 pairs); export pairs/s, eval seconds, one
-     RANSAC call's ms.
+     RANSAC call's ms;
+  9. the training entry point: the JSON training configuration at full
+     width (frozen SuperPoint-open, 512 keypoints, LightGlue 9 x 256 fp32
+     checkpointed, 640 x 480 patches of a pool of 256 synthetic textures at
+     960 x 720, the committed weights grafted by `train.load_experiment`)
+     at the phase 5 batch: run A through `Trainer.build()` / `train()`, 2
+     epochs of 3 steps, validation on 32 pairs every 2 iterations and at
+     each epoch's end, checkpoints pruned to the last 2, the synthetic
+     benchmark (10 pairs) at each epoch's end; run B through
+     `train.__main__.main`: epoch 0, then --restore and epoch 1 (launches
+     a step, a validation and a benchmark; finite losses and summaries; the
+     checkpoint layout; run B's parameters within 1e-6 of run A's; ms a
+     step with the loader, the loader's pairs/s alone, validation, save,
+     restore and benchmark times).
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -362,6 +375,7 @@ def check_assignment(b, m, n, seed):
 
 # ------------------------------------------- phase 3: the training attention
 TRAIN_B, TRAIN_N, TRAIN_N1 = 32, 512, 384  # pairs a step, keypoints, the shorter set of K6a
+TRAIN_CONF = "superpoint-open+lightglue_homography"  # the training configuration
 SRC_ATT = "gluefactory_tpu_torch/csrc/attention.cu"
 PAL_ATT = "gluefactory_tpu/ops/pallas_attention.py"
 
@@ -752,7 +766,8 @@ def run_training():
     import torch
 
     from gluefactory_tpu_torch.train.step import TrainState, make_optimizer, make_train_step
-    from gluefactory_tpu_torch.train.trainer import Trainer, homography_train_conf
+    from gluefactory_tpu_torch.train.trainer import Trainer
+    from gluefactory_tpu_torch.utils.config import load_conf
     from gluefactory_tpu_torch.weights import load_hermetic
 
     b, h, w, layers = TRAIN_B, 480, 640, 9
@@ -764,7 +779,7 @@ def run_training():
         marks.append(ev)
 
     def make(flash, mark=None):
-        conf = homography_train_conf()
+        conf = load_conf(TRAIN_CONF)
         conf["model"]["matcher"]["flash"] = flash
         trainer = Trainer(conf, device="cuda", mark=mark)
         trainer.load_weights(load_hermetic(device="cuda"))
@@ -804,7 +819,7 @@ def run_training():
         f"({matchable / TRAIN_N:.3f})")
 
     before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-    history = trainer.train(batches, steps=2)  # warm-up
+    history = trainer.train_steps(batches, steps=2)  # warm-up
     starts = []
 
     def feed(n):
@@ -820,7 +835,7 @@ def run_training():
     torch.cuda.reset_peak_memory_stats()
     reset_train_counts()
     t0 = time.perf_counter()
-    history += trainer.train(feed(steps), steps=steps)
+    history += trainer.train_steps(feed(steps), steps=steps)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     counts = read_train_counts()
@@ -867,7 +882,7 @@ def run_training():
     poisoned = {**batches[1], "view0": {**batches[1]["view0"],
                                         "image": torch.full_like(batches[1]["view0"]["image"],
                                                                  float("nan"))}}
-    out = trainer.train([poisoned], steps=1)[0]
+    out = trainer.train_steps([poisoned], steps=1)[0]
     after = list(trainer.model.state_dict().values()) + opt.mu + opt.nu
     if out["skipped_nonfinite"] != 1 or opt.count != 2 + steps or trainer.state.step != 3 + steps:
         fail(f"training: the poisoned batch was not vetoed: {out}, count {opt.count}")
@@ -1501,6 +1516,225 @@ def run_hpatches_eval():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ phase 9
+TRAIN_EPOCHS, TRAIN_STEPS, VAL_PAIRS, BENCH_PAIRS = 2, 3, 32, 10
+
+
+def entry_conf(init):
+    """The training configuration at full width, cut to TRAIN_B pairs a step
+    (its batch of 128 is the global one), TRAIN_STEPS steps an epoch and a
+    VAL_PAIRS-pair val split; the committed weights grafted from `init`."""
+    from gluefactory_tpu_torch.utils.config import load_conf, merge
+
+    # one pair a batch, the shapes phase 3 holds K1, K2 and K4 at
+    bench = {"data": {"val_size": BENCH_PAIRS, "val_batch_size": 1},
+             "model": {"extractor": {"max_num_keypoints": TRAIN_N}}}
+    return merge(load_conf(TRAIN_CONF), {
+        "data": {"batch_size": TRAIN_B, "train_size": TRAIN_STEPS * TRAIN_B,
+                 "val_size": VAL_PAIRS},
+        "train": {"epochs": TRAIN_EPOCHS, "eval_every_iter": 2, "keep_last_checkpoints": 2,
+                  "log_every_iter": 1, "load_experiment": init,
+                  "benchmarks": {"synthetic": bench}},
+    })
+
+
+def entry_counts():
+    return {**read_train_counts(), **dict(zip(("K1", "K2", "K4"), read_counts()))}
+
+
+def reset_entry_counts():
+    reset_train_counts()
+    reset_counts()
+
+
+def run_training_entry():
+    """Phase 9: the training entry point on the card. Run A: Trainer.build()
+    and train() for TRAIN_EPOCHS epochs with validation, checkpoints and the
+    synthetic benchmark; run B: `train.__main__.main` for the first epoch,
+    then again with --restore for the second. Returns the per-step launches."""
+    import shutil
+    import statistics
+
+    import torch
+
+    import gluefactory_tpu_torch.eval as gf_eval
+    from gluefactory_tpu_torch.datasets.homographies import HomographyDataset
+    from gluefactory_tpu_torch.train import __main__ as cli
+    from gluefactory_tpu_torch.train import trainer as tmod
+    from gluefactory_tpu_torch.utils import experiments as exps
+    from gluefactory_tpu_torch.utils.config import save_conf
+    from gluefactory_tpu_torch.weights import load_hermetic
+
+    t_phase = time.perf_counter()
+    work = ROOT / "outputs" / "chip_smoke_training"
+    shutil.rmtree(work, ignore_errors=True)
+    exps.TRAINING_PATH = work
+    timing = {"save": [], "restore": [], "validation": [], "benchmark": []}
+
+    def timed_call(key, fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timing[key].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    saved = (tmod.save_experiment, tmod.load_checkpoint, gf_eval.run_benchmark)
+    written = set()
+
+    def save(experiment, state, conf, epoch, iter_i, **k):
+        if experiment == "run_a" and not k.get("interrupted"):
+            written.add((epoch, iter_i))
+        return timed_call("save", saved[0])(experiment, state, conf, epoch, iter_i, **k)
+
+    tmod.save_experiment = save
+    tmod.load_checkpoint = timed_call("restore", saved[1])
+    bench_runs = []
+
+    def counted_benchmark(*a, **k):
+        torch.cuda.synchronize()
+        reset_entry_counts()
+        summaries, figures = timed_call("benchmark", saved[2])(*a, **k)
+        bench_runs.append((entry_counts(), summaries))
+        return summaries, figures
+
+    gf_eval.run_benchmark = counted_benchmark
+    try:
+        exps.save_experiment("chip_smoke_init", {"model": load_hermetic(device="cpu")}, {}, 0, 0,
+                             is_best=True)
+        conf = entry_conf("chip_smoke_init")
+
+        # run A, through the Trainer
+        trainer = tmod.Trainer(conf, "run_a", exps.experiment_dir("run_a"), device="cuda")
+        trainer.build()
+        steps, evals = [], []
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reset_entry_counts()
+            state, losses = step_fn(state, batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            steps.append((t0, t1, entry_counts(), {k: float(v) for k, v in losses.items()}))
+            return state, losses
+
+        def evaluate(epoch, it):
+            reset_entry_counts()
+            t0 = time.perf_counter()
+            results = eval_fn(epoch, it)
+            torch.cuda.synchronize()
+            timing["validation"].append(time.perf_counter() - t0)
+            evals.append((entry_counts(), results))
+            return results
+
+        step_fn, eval_fn = trainer.train_step, trainer.do_evaluation
+        trainer.train_step, trainer.do_evaluation = step, evaluate
+        t_a = time.perf_counter()
+        trainer.train()
+        t_a = time.perf_counter() - t_a
+        per_step = {"K5": 2 * 9, "K6b": 2 * 9, "K6a": 0, "K7b self": 9, "K7b cross": 2 * 9,
+                    "K1": 0, "K2": 0, "K4": 0}
+        if len(steps) != TRAIN_EPOCHS * TRAIN_STEPS:
+            fail(f"training entry: {len(steps)} steps, expected {TRAIN_EPOCHS * TRAIN_STEPS}")
+        for i, (_, _, counts, losses) in enumerate(steps):
+            if counts != per_step:
+                fail(f"training entry, step {i}: launches {counts}, expected {per_step}")
+            if not all(math.isfinite(v) for v in losses.values()) or losses["skipped_nonfinite"]:
+                fail(f"training entry, step {i}: {losses}")
+        n_val = VAL_PAIRS // TRAIN_B
+        for counts, results in evals:
+            if not (counts["K5"] == counts["K6b"] == 9 * n_val and counts["K7b self"] == 0
+                    and counts["K7b cross"] == 0 and counts["K6a"] == 0):
+                fail(f"training entry, validation: launches {counts}, expected K5 = K6b = "
+                     f"{9 * n_val} and no K7b or K6a")
+            if not math.isfinite(results["loss/total"]):
+                fail(f"training entry, validation: {results}")
+        if len(evals) != 5:
+            fail(f"training entry: {len(evals)} validations, expected 5 (iterations 2, 3, 4, 6, "
+                 "6 at the end of epoch 1)")
+        if len(bench_runs) != TRAIN_EPOCHS:
+            fail(f"training entry: {len(bench_runs)} benchmark runs, expected one an epoch "
+                 "(a failed benchmark only logs a warning)")
+        for counts, summaries in bench_runs:
+            want = {"K1": 9 * BENCH_PAIRS, "K2": 9 * BENCH_PAIRS, "K4": BENCH_PAIRS}
+            if {k: counts[k] for k in want} != want or counts["K7b self"] or counts["K5"]:
+                fail(f"training entry, benchmark: launches {counts}, expected {want} "
+                     "and no training kernel")
+            bad = [k for k, v in summaries.items() if not math.isfinite(v)]
+            if bad:
+                fail(f"training entry, benchmark: non-finite summaries {bad}")
+        cps = exps.list_checkpoints(exps.experiment_dir("run_a"))
+        best = exps.get_best_checkpoint("run_a")
+        meta = json.loads((cps[-1][1] / "meta.json").read_text())
+        if ([c[0] for c in cps] != sorted(written)[-2:] or cps[-1][0] != (1, 6)
+                or meta["epoch"] != 1 or meta["iter"] != 6
+                or not (best / "state.pt").exists() or meta["best_eval"] is None):
+            fail(f"training entry: checkpoints {[c[1].name for c in cps]}, best {best}, meta "
+                 f"{ {k: meta[k] for k in ('epoch', 'iter', 'best_eval')} }")
+
+        # run B: the command line, one epoch, then --restore for the second
+        conf_file = work / "run_b.json"
+        save_conf(conf, conf_file)
+        args = ["run_b", "--conf", str(conf_file), "train.benchmarks=null"]
+        cli.main([*args, "train.epochs=1"])
+        restored = cli.main([*args, "--restore"])
+        diff = max(float((restored.model.state_dict()[k].float() - v.float()).abs().max())
+                   for k, v in trainer.model.state_dict().items())
+        bitwise = all(torch.equal(restored.model.state_dict()[k], v)
+                      for k, v in trainer.model.state_dict().items())
+        if diff > 1e-6 or restored.state.optimizer.count != trainer.state.optimizer.count:
+            fail(f"training entry: resumed parameters {diff:.3g} from the uninterrupted run's "
+                 f"(bar 1e-6), Adam count {restored.state.optimizer.count} against "
+                 f"{trainer.state.optimizer.count}")
+
+        # the loader alone, then steps fed by it, on warm textures (after the
+        # comparison: these steps move run A's parameters)
+        step_only = [z - a for a, z, _, _ in steps]
+        ds = HomographyDataset(conf["data"])
+        t0 = time.perf_counter()
+        n = sum(batch["view0"]["image"].shape[0]
+                for batch in ds.get_data_loader("train", epoch=TRAIN_EPOCHS))
+        loader_pps = n / (time.perf_counter() - t0)
+        trainer.train_step = step_fn
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fed = trainer.train_steps(ds.get_data_loader("train", epoch=TRAIN_EPOCHS + 1))
+        torch.cuda.synchronize()
+        with_loader_ms = (time.perf_counter() - t0) * 1e3 / len(fed)
+        med = lambda xs: statistics.median(xs) * 1e3
+        log(f"[train entry] run A ({TRAIN_EPOCHS} epochs x {TRAIN_STEPS} steps of {TRAIN_B} pairs, "
+            f"{VAL_PAIRS}-pair validation at iterations 2, 3, 4, 6, 6, synthetic benchmark of "
+            f"{BENCH_PAIRS} pairs an epoch) {t_a:.2f} s; launches a step {per_step}, a "
+            f"validation {evals[0][0]['K5']} K5 + {evals[0][0]['K6b']} K6b, a benchmark "
+            f"{ {k: bench_runs[0][0][k] for k in ('K1', 'K2', 'K4')} }")
+        log(f"[train entry] losses total " + " ".join(f"{s[3]['total']:.4f}" for s in steps)
+            + "; val loss/total " + " ".join(f"{r['loss/total']:.4f}" for _, r in evals)
+            + "; benchmark H_error_dlt@3px "
+            + " ".join(f"{s['H_error_dlt@3px']:.4f}" for _, s in bench_runs))
+        log(f"[train entry] ms a step with the loader {with_loader_ms:.2f} ({len(fed)} steps "
+            f"fed by the train loader, from its start); the step alone {med(step_only):.2f} "
+            f"(median of {len(step_only)}, run A; phase 5: the step on batches in memory); the "
+            f"loader alone {loader_pps:.2f} pairs/s ({n} pairs, "
+            f"{conf['data']['num_workers']} workers, warm textures), "
+            f"{TRAIN_B / loader_pps * 1e3:.2f} ms a batch")
+        log(f"[train entry] validation {med(timing['validation']):.2f} ms (median of "
+            f"{len(timing['validation'])}, {VAL_PAIRS} pairs); checkpoint save "
+            f"{med(timing['save']):.2f} ms (median of {len(timing['save'])}), restore "
+            f"{med(timing['restore']):.2f} ms; benchmark "
+            + " ".join(f"{t:.2f}" for t in timing["benchmark"]) + " s")
+        log(f"[train entry] run B (epoch 0, --restore, epoch 1) against run A: final parameters "
+            f"max abs diff {diff:.3g} (bar 1e-6), bitwise {bitwise}, Adam count "
+            f"{restored.state.optimizer.count}; checkpoints "
+            f"{[c[1].name for c in cps]} + checkpoint_best; phase {time.perf_counter() - t_phase:.1f} s")
+        return per_step
+    finally:
+        tmod.save_experiment, tmod.load_checkpoint, gf_eval.run_benchmark = saved
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     global TRAIN_B
@@ -1656,6 +1890,11 @@ def main() -> int:
 
     # 8. the HPatches evaluation slice
     per_step.update(run_hpatches_eval())
+    torch.cuda.empty_cache()
+
+    # 9. the training entry point
+    run_training_entry()
+    torch.cuda.empty_cache()
     for k in kernels:
         if "key" in k:
             k["launches"] = per_step[k["key"]]

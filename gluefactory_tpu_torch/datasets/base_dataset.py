@@ -1,18 +1,25 @@
-"""Dataset base class and batch loader (counterpart of
+"""Dataset base class, batch loaders and the registry (counterpart of
 gluefactory_tpu/datasets/base_dataset.py: `collate`, `BaseDataset`,
-`get_data_loader`).
+`get_data_loader`, `get_overfit_loader`, `get_dataset`).
 
 Datasets give numpy samples on the host; the loader collates fixed-shape
-batches in order on a background thread, `prefetch` batches ahead, so that
-reading overlaps the model on the card. Shuffling and sharding wait for the
-training datasets (ROADMAP Queue 1 item 2).
+batches on a background thread, `prefetch` batches ahead, so that reading
+overlaps the model on the card. `num_workers` > 0 builds each batch's
+samples on a thread pool (the warps and filters release the GIL). The
+train split is shuffled by `RandomState(seed + epoch)`, and a split with
+`set_epoch` is told the epoch before the first sample. Incomplete last
+batches are dropped. Sharding across processes waits for DDP (ROADMAP
+Queue 1 item 2).
 """
 
 from __future__ import annotations
 
 import collections.abc
+import importlib
+import importlib.util
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import ClassVar, Iterator, Mapping
 
 import numpy as np
@@ -41,21 +48,21 @@ def collate(samples: list):
 
 class _Prefetch:
     """Iterate `make_batches()` on a background thread, `depth` batches ahead.
-    Exposes `.dataset` (the indexable split)."""
+    Exposes `.dataset` (the indexable split). The thread stops after its
+    current batch once the iterator is dropped or the main thread ends, and
+    the interpreter waits for it: torch ops still running in a thread at
+    interpreter exit abort the process."""
 
     def __init__(self, make_batches, depth: int, dataset=None):
         self.dataset = dataset
         self._queue: queue.Queue = queue.Queue(maxsize=depth)
         self._done = object()
-        threading.Thread(target=self._worker, args=(make_batches,), daemon=True).start()
+        self._stop = threading.Event()
+        threading.Thread(target=_produce,
+                         args=(make_batches, self._queue, self._done, self._stop)).start()
 
-    def _worker(self, make_batches):
-        try:
-            for batch in make_batches():
-                self._queue.put(batch)
-        except BaseException as e:  # handed to the consumer
-            self._queue.put(e)
-        self._queue.put(self._done)
+    def __del__(self):
+        self._stop.set()
 
     def __iter__(self):
         return self
@@ -69,16 +76,40 @@ class _Prefetch:
         return item
 
 
+def _produce(make_batches, out: queue.Queue, done, stop: threading.Event) -> None:
+    def put(item) -> bool:
+        while not stop.is_set() and threading.main_thread().is_alive():
+            try:
+                out.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    try:
+        batches = make_batches()
+        for batch in batches:
+            if not put(batch):
+                batches.close()
+                return
+    except BaseException as e:  # handed to the consumer
+        put(e)
+    put(done)
+
+
 class BaseDataset:
     """Subclasses define default_conf, `_init(conf)` and `get_dataset(split)`
     returning an indexable split."""
 
     base_default_conf: ClassVar[dict] = {
         "name": None,
+        "num_workers": 0,
         "train_batch_size": 2,
         "val_batch_size": 2,
         "test_batch_size": 1,
         "batch_size": None,  # overrides the per-split sizes if set
+        "shuffle_training": True,
+        "seed": 0,
         "prefetch": 2,
     }
     default_conf: ClassVar[dict] = {}
@@ -98,19 +129,72 @@ class BaseDataset:
             return int(self.conf.batch_size)
         return int(self.conf.get(f"{split}_batch_size"))
 
-    def get_data_loader(self, split: str) -> Iterator[dict]:
-        """Collated batches of a split, in order; an incomplete last batch is
-        dropped."""
+    def get_data_loader(self, split: str, shuffle: bool | None = None,
+                        epoch: int = 0) -> Iterator[dict]:
+        """Collated batches of a split; `shuffle` defaults to True on the
+        train split (`shuffle_training`)."""
         dataset = self.get_dataset(split)
+        if hasattr(dataset, "set_epoch"):
+            dataset.set_epoch(epoch)
         bs = self.batch_size(split)
         if len(dataset) < bs:
             raise ValueError(f"Split {split!r} has {len(dataset)} samples < batch size {bs}")
+        if shuffle is None:
+            shuffle = split == "train" and self.conf.shuffle_training
+        num_workers = int(self.conf.num_workers)
 
         def make_batches():
-            for start in range(0, len(dataset) - bs + 1, bs):
-                yield collate([dataset[i] for i in range(start, start + bs)])
+            order = np.arange(len(dataset))
+            if shuffle:
+                np.random.RandomState(self.conf.seed + epoch).shuffle(order)
+            starts = range(0, len(order) - bs + 1, bs)
+            if num_workers > 0:
+                with ThreadPoolExecutor(num_workers) as pool:
+                    for start in starts:
+                        yield collate(list(pool.map(lambda i: dataset[int(i)],
+                                                    order[start:start + bs])))
+            else:
+                for start in starts:
+                    yield collate([dataset[int(i)] for i in order[start:start + bs]])
 
         return _Prefetch(make_batches, max(int(self.conf.prefetch), 1), dataset=dataset)
 
+    def get_overfit_loader(self, split: str, length: int = 100):
+        """One batch of the split at epoch 0, `length` times. (The JAX
+        package's version reads an undefined `epoch` here and raises
+        NameError on a dataset with `set_epoch`.)"""
+        dataset = self.get_dataset(split)
+        if hasattr(dataset, "set_epoch"):
+            dataset.set_epoch(0)
+        bs = self.batch_size(split)
+        batch = collate([dataset[i % len(dataset)] for i in range(bs)])
 
-__all__ = ["BaseDataset", "collate"]
+        def make_batches():
+            for _ in range(length):
+                yield batch
+
+        return _Prefetch(make_batches, 1, dataset=dataset)
+
+
+def get_dataset(name: str):
+    """The dataset class of a module of this package (or an importable
+    path): its `__main_dataset__`, else its one BaseDataset subclass."""
+    base = __name__.rsplit(".", 1)[0]
+    for path in (f"{base}.{name}", name):
+        try:
+            found = importlib.util.find_spec(path) is not None
+        except ModuleNotFoundError:
+            found = False
+        if found:
+            mod = importlib.import_module(path)
+            main = getattr(mod, "__main_dataset__", None)
+            if main is not None:
+                return main
+            classes = [v for v in mod.__dict__.values() if isinstance(v, type)
+                       and issubclass(v, BaseDataset) and v is not BaseDataset]
+            if len(classes) == 1:
+                return classes[0]
+    raise RuntimeError(f"Dataset {name} not found")
+
+
+__all__ = ["BaseDataset", "collate", "get_dataset"]

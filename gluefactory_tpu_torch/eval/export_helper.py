@@ -2,9 +2,10 @@
 gluefactory_tpu/eval/export_helper.py:25-116).
 
 `make_export_apply_fn` builds the port's two-view pipeline on the device and
-loads an `.npz` checkpoint (the JAX package's flat flax artifact, e.g.
-`weights/hermetic/sp_open_lg.npz`): every parameter and buffer of the
-configured components must be in it. The host-extractor branch of the JAX
+loads a checkpoint: an `.npz` file (the JAX package's flat flax artifact,
+e.g. `weights/hermetic/sp_open_lg.npz`) or the name of a training
+experiment of the port (its best checkpoint, else its last). Every
+parameter and buffer of the configured components must be in it. The host-extractor branch of the JAX
 package (sift, lsd, wireframe) waits for those extractors (ROADMAP Queue 1
 items 4-5).
 """
@@ -25,13 +26,19 @@ HOST_EXTRACTORS = {"sift", "lsd", "wireframe"}
 
 
 def load_checkpoint(model: torch.nn.Module, path: str | Path) -> None:
-    """Load the entries of `model.state_dict()` from an `.npz` checkpoint;
-    raises on one the file lacks."""
-    if not str(path).endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: only .npz checkpoints load here; training experiments are not "
-            "ported yet (ROADMAP Queue 1 item 2)")
-    state = load_hermetic(path, device=next(iter(model.state_dict().values())).device)
+    """Load the entries of `model.state_dict()` from an `.npz` checkpoint or
+    an experiment; raises on one the checkpoint lacks."""
+    device = next(iter(model.state_dict().values())).device
+    if str(path).endswith(".npz"):
+        state = load_hermetic(path, device=device)
+    else:
+        from ..utils import experiments
+
+        try:
+            ckpt = experiments.get_best_checkpoint(str(path))
+        except FileNotFoundError:
+            ckpt = experiments.get_last_checkpoint(str(path))
+        state = experiments.load_checkpoint(ckpt, device=device)[0]["model"]
     own = model.state_dict()
     missing = sorted(k for k in own if k not in state)
     if missing:

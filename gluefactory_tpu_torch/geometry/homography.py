@@ -1,8 +1,11 @@
-"""Homography warping, the weighted DLT and homography errors (counterpart
-of gluefactory_tpu/geometry/homography.py:118-240).
+"""Homography sampling, warping, the weighted DLT and homography errors
+(counterpart of gluefactory_tpu/geometry/homography.py:26-240).
 
-All functions keep every leading dimension and run on the device of their
-inputs; `warp_points_np` is the numpy helper of the data pipeline.
+The torch functions keep every leading dimension and run on the device of
+their inputs. The random sampler of the data pipeline and its helpers
+(`sample_homography_corners`, `solve_homography_4pt_np`, `warp_points_np`)
+are numpy, copied from the JAX module: they draw from the caller's
+`RandomState` in the same order, so a seed gives the same homographies.
 """
 
 from __future__ import annotations
@@ -14,6 +17,91 @@ import torch
 
 from ..ops.linalg import smallest_eigenvector
 from .utils import from_homogeneous, to_homogeneous
+
+
+def _center_patch(shape, patch_shape=None):
+    width, height = shape
+    pw, ph = patch_shape if patch_shape is not None else shape
+    l, b = (width - pw) / 2.0, (height - ph) / 2.0
+    r, t = (width + pw) / 2.0, (height + ph) / 2.0
+    return np.array([[l, b], [l, t], [r, t], [r, b]])
+
+
+def _is_convex(patch: np.ndarray, min_convexity: float = 0.05) -> bool:
+    n = patch.shape[0]
+    for i in range(n):
+        x1, y1 = patch[(i - 1) % n]
+        x2, y2 = patch[i]
+        x3, y3 = patch[(i + 1) % n]
+        if (x2 - x1) * (y3 - y2) - (x3 - x2) * (y2 - y1) > -min_convexity:
+            return False
+    return True
+
+
+def sample_homography_corners(
+    shape,
+    patch_shape,
+    difficulty: float = 1.0,
+    translation: float = 0.4,
+    n_angles: int = 10,
+    max_angle: float = 90.0,
+    min_convexity: float = 0.05,
+    rng=np.random,
+):
+    """A random convex warp of the image borders and its homography: a
+    convex quadrilateral within the image, the first in-bounds of
+    `n_angles` shuffled rotations, a scaled random translation; H maps the
+    image corners to the patch. Returns (H, corners, warped_corners,
+    patch_shape)."""
+    max_angle_rad = max_angle / 180.0 * math.pi
+    width, height = shape
+    pwidth, pheight = width * (1 - difficulty), height * (1 - difficulty)
+    min_pts1 = _center_patch(shape, (pwidth, pheight))
+    full = _center_patch(shape)
+    pts2 = _center_patch(patch_shape)
+    scale = min_pts1 - full
+    while True:
+        offsets = rng.uniform(0.0, 1.0, size=(4, 2)) * scale
+        pts1 = full + offsets
+        if _is_convex(pts1 / np.array(shape), min_convexity):
+            break
+
+    # re-center
+    pts1 = pts1 - pts1.mean(axis=0, keepdims=True) + min_pts1.mean(axis=0, keepdims=True)
+
+    if n_angles > 0 and difficulty > 0:
+        angles = np.linspace(-max_angle_rad * difficulty, max_angle_rad * difficulty, n_angles)
+        rng.shuffle(angles)
+        center = pts1.mean(axis=0, keepdims=True)
+        for ang in angles:
+            c, s = np.cos(ang), np.sin(ang)
+            rot = np.array([[c, -s], [s, c]])
+            cand = (pts1 - center) @ rot + center
+            norm = cand / np.array(shape)
+            if np.all((norm >= 0.0) & (norm < 1.0)):
+                pts1 = cand
+                break
+
+    if translation > 0:
+        min_trans = -pts1.min(axis=0)
+        max_trans = np.array(shape) - pts1.max(axis=0)
+        trans = rng.uniform(min_trans, max_trans)[None]
+        pts1 = pts1 + trans * translation * difficulty
+
+    H = solve_homography_4pt_np(pts1, pts2)
+    warped = warp_points_np(full, H)
+    return H, full, warped, patch_shape
+
+
+def solve_homography_4pt_np(pts1: np.ndarray, pts2: np.ndarray) -> np.ndarray:
+    """The exact homography of 4 correspondences (an 8 x 8 solve)."""
+    A, b = [], []
+    for (x, y), (u, v) in zip(pts1, pts2):
+        A.append([x, y, 1, 0, 0, 0, -x * u, -y * u])
+        A.append([0, 0, 0, x, y, 1, -x * v, -y * v])
+        b.extend([u, v])
+    h = np.linalg.solve(np.asarray(A, np.float64), np.asarray(b, np.float64))
+    return np.concatenate([h, [1.0]]).reshape(3, 3)
 
 
 def warp_points_np(points: np.ndarray, H: np.ndarray, inverse: bool = False) -> np.ndarray:
@@ -115,6 +203,7 @@ def homography_corner_error(H, H_gt, image_size) -> torch.Tensor:
 
 
 __all__ = [
+    "sample_homography_corners", "solve_homography_4pt_np",
     "warp_points", "warp_points_np", "inv", "solve_homography_dlt",
     "sym_homography_error", "sym_homography_error_all", "homography_corner_error",
 ]

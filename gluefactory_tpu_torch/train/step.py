@@ -7,18 +7,27 @@ The optimizer repeats the JAX package's optax chain exactly:
 only when norm >= max_norm (no epsilon), then `adam` (b1 0.9, b2 0.999,
 eps 1e-8 outside the square root, no weight decay) with the learning rate
 read from the schedule at the optimizer's own count before it is
-incremented. Parameters and moments are updated in place.
+incremented. Parameters and moments are updated in place. The schedules:
+none (constant), `exp` (decay by 10 every `exp_div_10` steps after
+`start`) and `cosine` (optax's `cosine_decay_schedule(lr, steps)`: half a
+cosine from lr down to 0 at `steps`, 0 after).
 
 The veto: when the loss or any gradient is not finite, the whole update is
 skipped. Parameters, both moments and the optimizer's count (so the
 schedule) keep their values, `step` still advances and the losses report
 `skipped_nonfinite = 1`. Reading that flag costs one host synchronisation
 a step.
+
+With `grad_stats`, the losses also hold `grad/norm`, the global norm of the
+gradients before the clip (0 on a vetoed step, whose gradients the JAX step
+zeroes), and `grad/norm/<module>` for each top-level module with
+parameters (0 for a frozen one).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -32,6 +41,9 @@ def make_schedule(conf) -> Callable[[int], float]:
     if stype == "exp":
         start, div = sched.get("start", 0), sched.get("exp_div_10", 1e5)
         return lambda i: lr * 10.0 ** (-max(i - start, 0) / div)
+    if stype == "cosine":
+        steps = sched.get("steps", 100_000)
+        return lambda i: lr * 0.5 * (1.0 + math.cos(math.pi * min(i, steps) / steps))
     if stype is None:
         return lambda i: lr
     raise NotImplementedError(f"lr_schedule type {stype!r} is not ported yet")
@@ -98,15 +110,23 @@ class TrainState:
     optimizer: Optimizer
 
 
-def make_train_step(model, mark: Optional[Callable[[str], None]] = None):
+def module_of(name: str) -> str:
+    """The top-level module of a parameter name (`matcher.x_w` -> `matcher`)."""
+    return name.split(".", 1)[0]
+
+
+def make_train_step(model, mark: Optional[Callable[[str], None]] = None,
+                    grad_stats: bool = False):
     """Build `train_step(state, batch) -> (state, losses)` for a two-view
     pipeline style model (`model(batch)`, `model.loss(pred, batch)`).
 
     `losses` holds the batch mean of every entry of the model's losses, as
-    0-d tensors on the model's device, and `skipped_nonfinite`. `mark(name)`
-    is called after the "forward" (model and loss), the "backward" and the
-    "optimizer" phase, for timing."""
+    0-d tensors on the model's device, `skipped_nonfinite` and, with
+    `grad_stats`, the gradient norms. `mark(name)` is called after the
+    "forward" (model and loss), the "backward" and the "optimizer" phase,
+    for timing."""
     mark = mark or (lambda name: None)
+    modules = sorted({module_of(k) for k, _ in model.named_parameters()})
 
     def train_step(state: TrainState, batch: dict):
         params = list(state.params.values())
@@ -120,15 +140,28 @@ def make_train_step(model, mark: Optional[Callable[[str], None]] = None):
         finite = torch.stack([torch.isfinite(g).all() for g in grads]
                              + [torch.isfinite(loss)]).all()
         skipped = not bool(finite)  # the step's one host synchronisation
+        out = {k: v.detach().float().mean() for k, v in losses.items()}
+        if grad_stats:
+            out.update(_grad_norms(state.params, grads, modules, skipped, loss.device))
         if not skipped:
             state.optimizer.update(grads)
         state.step += 1
-        out = {k: v.detach().float().mean() for k, v in losses.items()}
         out["skipped_nonfinite"] = torch.tensor(float(skipped), device=loss.device)
         mark("optimizer")
         return state, out
 
     return train_step
+
+
+@torch.no_grad()
+def _grad_norms(params: dict, grads: list, modules: list, skipped: bool, device) -> dict:
+    sq = {m: torch.zeros((), device=device) for m in modules}
+    if not skipped:
+        for name, g in zip(params, grads):
+            sq[module_of(name)] = sq[module_of(name)] + g.float().square().sum()
+    out = {"grad/norm": torch.sqrt(sum(sq.values()))}
+    out.update({f"grad/norm/{m}": torch.sqrt(v) for m, v in sq.items()})
+    return out
 
 
 __all__ = ["TrainState", "Optimizer", "make_optimizer", "make_schedule", "make_train_step"]

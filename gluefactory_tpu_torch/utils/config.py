@@ -1,17 +1,45 @@
 """Recursive config merge (counterpart of gluefactory_tpu/utils/config.py).
 
-Only what the models and the evaluation need: `merge`, `to_dict` and
-`parse_dotlist`. Configs are plain dicts wrapped in `Config` for attribute
-access; nothing here imports yaml (values of a dotlist are JSON).
+`merge`, `to_dict`, `parse_dotlist`, and `load_conf` / `save_conf`. Configs
+are plain dicts wrapped in `Config` for attribute access. Files are JSON:
+nothing here imports yaml (the JAX package's YAML configs have JSON copies
+under `gluefactory_tpu_torch/configs/`, and values of a dotlist are JSON).
 """
 
 from __future__ import annotations
 
 import copy
 import json
+from pathlib import Path
 from typing import Any, Mapping
 
-__all__ = ["Config", "merge", "to_dict", "parse_dotlist"]
+__all__ = ["Config", "merge", "to_dict", "parse_dotlist", "load_conf", "save_conf",
+           "CONFIG_DIR"]
+
+CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
+
+
+def load_conf(path: str | Path) -> dict:
+    """A JSON configuration as a plain dict: a file, or the name of one of
+    the package's `configs/` (with or without `.json`)."""
+    with open(_resolve(path)) as f:
+        return json.load(f) or {}
+
+
+def save_conf(conf: Mapping, path: str | Path) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(to_dict(conf), f, indent=2)
+
+
+def _resolve(name: str | Path) -> Path:
+    path = Path(name)
+    if path.exists():
+        return path
+    for cand in (CONFIG_DIR / str(name), CONFIG_DIR / f"{name}.json"):
+        if cand.exists():
+            return cand
+    raise FileNotFoundError(f"no configuration {name!r} (a path, or a name under {CONFIG_DIR})")
 
 
 def to_dict(conf: Any) -> Any:

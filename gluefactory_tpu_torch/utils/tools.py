@@ -1,8 +1,11 @@
-"""Metric aggregators and the AUC of an error-recall curve (counterpart of
-gluefactory_tpu/utils/tools.py:17-163; numpy, the same semantics)."""
+"""Metric aggregators, the AUC of an error-recall curve, `Timer` and
+`set_seed` (counterpart of gluefactory_tpu/utils/tools.py; numpy, the same
+semantics)."""
 
 from __future__ import annotations
 
+import random
+import time
 from collections.abc import Iterable
 
 import numpy as np
@@ -145,7 +148,34 @@ METRICS = {
     "auc": AUCMetric,
 }
 
+class Timer:
+    """Context timer; prints the elapsed seconds when it has a name."""
+
+    def __init__(self, name=None):
+        self.name = name
+
+    def __enter__(self):
+        self.tstart = time.perf_counter()
+        return self
+
+    def __exit__(self, *_):
+        self.duration = time.perf_counter() - self.tstart
+        if self.name is not None:
+            print(f"[{self.name}] Elapsed: {self.duration:.4f} s")
+
+
+def set_seed(seed: int):
+    """Seed numpy's, Python's and torch's global generators; returns a
+    `RandomState(seed)`."""
+    import torch
+
+    np.random.seed(seed)
+    random.seed(seed)
+    torch.manual_seed(seed)
+    return np.random.RandomState(seed)
+
+
 __all__ = [
     "AverageMetric", "FAverageMetric", "MedianMetric", "QuantileMetric",
-    "RecallMetric", "PRMetric", "AUCMetric", "METRICS", "cal_error_auc",
+    "RecallMetric", "PRMetric", "AUCMetric", "METRICS", "cal_error_auc", "Timer", "set_seed",
 ]

@@ -1,8 +1,16 @@
 """The port's whole slice (SuperPoint-open -> full-depth LightGlue -> match
 filtering) with the committed hermetic weights, against the JAX
-two_view_pipeline on the CPU in float32; plus the port's package rules."""
+two_view_pipeline on the CPU in float32; plus the port's package rules.
+
+Under pytest-xdist every worker collects every test file, so the thread cap
+below holds for all of the port's tests: torch takes this worker's share of
+the cores for its intra-op pool (one thread with 6 workers on 8 cores)
+instead of a pool as large as the machine in every worker. Run alone, the
+cap leaves torch's default.
+"""
 
 import ast
+import os
 from pathlib import Path
 
 import jax
@@ -16,8 +24,14 @@ from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu.models.matchers.lightglue_pretrained import load_npz_params
 from gluefactory_tpu_torch.estimators.homography.torch_ransac import TorchRansacHomography
 from gluefactory_tpu_torch.eval.hpatches import HPatchesPipeline
+from gluefactory_tpu_torch.eval.synthetic import SyntheticHomographyPipeline
 from gluefactory_tpu_torch.models import get_model
+from gluefactory_tpu_torch.train.trainer import Trainer
+from gluefactory_tpu_torch.utils.config import load_conf
 from gluefactory_tpu_torch.weights import HERMETIC, load_hermetic
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 ROOT = Path(__file__).resolve().parent.parent
 CONF = {
@@ -67,6 +81,8 @@ def test_pipeline_matches_jax_with_hermetic_weights():
     lambda: get_model("nearest_neighbor_matcher")(),
     lambda: HPatchesPipeline(),
     lambda: TorchRansacHomography(),
+    lambda: SyntheticHomographyPipeline(),
+    lambda: Trainer(load_conf("superpoint-open+lightglue_homography"), "e"),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -88,9 +104,11 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     names = {p.name for p in files}
     assert {"superglue.py", "block0_conv.py", "fused_attention.py", "lightglue.py", "hpatches.py",
-            "ransac.py", "torch_ransac.py", "eval_pipeline.py", "nearest_neighbor_matcher.py"} <= names
+            "ransac.py", "torch_ransac.py", "eval_pipeline.py", "nearest_neighbor_matcher.py",
+            "trainer.py", "__main__.py", "homographies.py", "augmentations.py", "image_ops.py",
+            "experiments.py", "summary.py", "synthetic.py", "base_dataset.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax", "gluefactory_tpu", "cv2", "h5py",
-                               "yaml", "tqdm"), (path, mod)
+            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "gluefactory_tpu", "cv2",
+                               "h5py", "yaml", "tqdm", "matplotlib", "PIL"), (path, mod)

@@ -24,9 +24,11 @@ from gluefactory_tpu.models.matchers.lightglue_pretrained import load_npz_params
 from gluefactory_tpu.train import step as jstep
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.train import step as tstep
-from gluefactory_tpu_torch.train.trainer import Trainer, homography_train_conf
+from gluefactory_tpu_torch.train.trainer import Trainer
+from gluefactory_tpu_torch.utils.config import load_conf
 from gluefactory_tpu_torch.weights import HERMETIC, load_hermetic, params_to_jax
 
+CONF = "superpoint-open+lightglue_homography"  # the training configuration
 TRAIN = {"lr": 1e-3, "grad_clip": 1.0,
          "lr_schedule": {"type": "exp", "start": 1, "exp_div_10": 2}}
 
@@ -122,7 +124,7 @@ def _convert(data, fn):
 
 
 def _tiny_conf():
-    conf = homography_train_conf()
+    conf = load_conf(CONF)
     conf["model"]["extractor"].update(max_num_keypoints=48, dtype="float32")
     return conf
 
@@ -141,7 +143,7 @@ def test_two_full_steps_match_jax():
     trainer = Trainer(conf, device="cpu")
     trainer.load_weights(load_hermetic(device="cpu"))
     extractor_before = {k: v.clone() for k, v in trainer.model.extractor.state_dict().items()}
-    out = trainer.train([_convert(b, torch.from_numpy) for b in batches])
+    out = trainer.train_steps([_convert(b, torch.from_numpy) for b in batches])
 
     for i, batch in enumerate(batches):
         state, ref = jtrain(state, _convert(batch, jnp.asarray))
@@ -165,14 +167,14 @@ def test_checkpoint_round_trip(tmp_path):
     conf["model"]["matcher"]["n_layers"] = 2
     batches = [_convert(_pairs(s, 2), torch.from_numpy) for s in (3, 4, 5)]
     a = Trainer(conf, device="cpu")
-    a.train(batches[:2])
+    a.train_steps(batches[:2])
     a.save(tmp_path / "ckpt.pt")
-    expect = a.train(batches[2:])[0]
+    expect = a.train_steps(batches[2:])[0]
 
     b = Trainer(conf, device="cpu")
     b.restore(tmp_path / "ckpt.pt")
     assert b.state.step == 2 and b.state.optimizer.count == 2
-    got = b.train(batches[2:])[0]
+    got = b.train_steps(batches[2:])[0]
     assert b.state.step == 3
     for k in expect:
         np.testing.assert_allclose(got[k], expect[k], rtol=1e-6, err_msg=k)
@@ -181,4 +183,4 @@ def test_checkpoint_round_trip(tmp_path):
 def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Trainer(homography_train_conf())
+        Trainer(load_conf(CONF))
