@@ -4,8 +4,9 @@ gluefactory_tpu/datasets/base_dataset.py: `collate`, `BaseDataset`,
 
 Datasets give numpy samples on the host; the loader collates fixed-shape
 batches on a background thread, `prefetch` batches ahead, so that reading
-overlaps the model on the card. `num_workers` > 0 builds each batch's
-samples on a thread pool (the warps and filters release the GIL). The
+overlaps the model on the card. `num_workers` > 0 builds the samples on a
+thread pool, `num_workers` of them in flight across batch boundaries (the
+warps, filters and renderers release the GIL). The
 train split is shuffled by `RandomState(seed + epoch)`, and a split with
 `set_epoch` is told the epoch before the first sample. Incomplete last
 batches are dropped. Sharding across processes waits for DDP (ROADMAP
@@ -14,6 +15,7 @@ Queue 1 item 2).
 
 from __future__ import annotations
 
+import collections
 import collections.abc
 import importlib
 import importlib.util
@@ -24,13 +26,16 @@ from typing import ClassVar, Iterator, Mapping
 
 import numpy as np
 
+from ..geometry.wrappers import TensorWrapper
 from ..utils.config import Config, merge
 
 
 def collate(samples: list):
     """Stack a list of sample dicts into batched numpy arrays; strings become
-    lists."""
+    lists, a `Pose` or `Camera` (CPU tensors) is stacked leaf by leaf."""
     elem = samples[0]
+    if isinstance(elem, TensorWrapper):
+        return type(elem).stack(samples)
     if isinstance(elem, Mapping):
         return {k: collate([s[k] for s in samples]) for k in elem}
     if isinstance(elem, (str, bytes)):
@@ -149,10 +154,19 @@ class BaseDataset:
                 np.random.RandomState(self.conf.seed + epoch).shuffle(order)
             starts = range(0, len(order) - bs + 1, bs)
             if num_workers > 0:
+                # samples are submitted ahead across batch boundaries, so that
+                # the workers stay busy at any batch size (one pair a batch in
+                # the evaluations)
+                ahead = -(-num_workers // bs)  # batches in flight beside the current one
                 with ThreadPoolExecutor(num_workers) as pool:
+                    pending = collections.deque()
                     for start in starts:
-                        yield collate(list(pool.map(lambda i: dataset[int(i)],
-                                                    order[start:start + bs])))
+                        pending.append([pool.submit(dataset.__getitem__, int(i))
+                                        for i in order[start:start + bs]])
+                        if len(pending) > ahead:
+                            yield collate([f.result() for f in pending.popleft()])
+                    while pending:
+                        yield collate([f.result() for f in pending.popleft()])
             else:
                 for start in starts:
                     yield collate([dataset[int(i)] for i in order[start:start + bs]])

@@ -561,5 +561,31 @@ def warp_perspective(img: np.ndarray, H: np.ndarray, size) -> np.ndarray:
     return out.to(torch.float32).numpy()
 
 
+def remap_linear(src: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.ndarray:
+    """`cv2.remap(src, map_x, map_y, cv2.INTER_LINEAR)` of a float32 (H, W)
+    image with float32 maps (border constant 0), as OpenCV 5 computes it:
+    no 1/32 px quantisation of the coordinates (that of OpenCV 4's fixed-point
+    tables); a = x - floor(x) and b = y - floor(y) in float32, each tap
+    outside the image reads 0, and the two row lerps and the column lerp are
+    each one fused multiply-add, fma(a, p01 - p00, p00), rounded once to
+    float32 (here from float64, where the product is exact)."""
+    sh, sw = src.shape
+    # two zero pixels around the image: a tap outside it reads one of them
+    # once the top-left tap is clamped to [-2, size]
+    img = torch.nn.functional.pad(torch.from_numpy(np.ascontiguousarray(src, np.float32)),
+                                  (2, 2, 2, 2)).reshape(-1)
+    x = torch.from_numpy(np.ascontiguousarray(map_x, np.float32))
+    y = torch.from_numpy(np.ascontiguousarray(map_y, np.float32))
+    fx, fy = torch.floor(x), torch.floor(y)
+    a, b = (x - fx).double(), (y - fy).double()
+    pw = sw + 4
+    base = ((fy.clamp(-2, sh) + 2) * pw + fx.clamp(-2, sw) + 2).to(torch.int64).reshape(-1)
+    tap = lambda off: img[base + off].reshape(x.shape)
+    fma = lambda w, p, q: (w * (q - p).double() + p.double()).float()
+    p00, p01, p10, p11 = tap(0), tap(1), tap(pw), tap(pw + 1)
+    return fma(b, fma(a, p00, p01), fma(a, p10, p11)).numpy()
+
+
 __all__ = ["gaussian_kernel", "gaussian_blur", "filter2d", "sep_filter", "resize_cubic",
-           "fill_poly", "fill_ellipse", "ellipse_poly", "clip_line", "warp_perspective"]
+           "fill_poly", "fill_ellipse", "ellipse_poly", "clip_line", "warp_perspective",
+           "remap_linear"]

@@ -1,14 +1,15 @@
 """Benchmarks of the port (counterpart of gluefactory_tpu/eval): the
 registry and the hook the trainer calls at the end of an epoch. HPatches
-(`eval.hpatches`) and the synthetic homography benchmark
-(`eval.synthetic`) are ported; the others wait (ROADMAP Queue 1 item 6)."""
+(`eval.hpatches`), the synthetic homography benchmark (`eval.synthetic`)
+and the synthetic relative-pose benchmark (`eval.synthetic_pose`) are
+ported; the others wait (ROADMAP Queue 1 item 6)."""
 
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Any
 
-NOT_PORTED = ("megadepth1500", "eth3d", "MP", "synthetic_pose")
+NOT_PORTED = ("megadepth1500", "eth3d", "MP")
 
 
 def get_benchmark(name: str):
@@ -20,6 +21,10 @@ def get_benchmark(name: str):
         from .synthetic import SyntheticHomographyPipeline
 
         return SyntheticHomographyPipeline
+    if name == "synthetic_pose":
+        from .synthetic_pose import SyntheticPosePipeline
+
+        return SyntheticPosePipeline
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"the {name} benchmark is not ported yet (ROADMAP Queue 1 item 6)")

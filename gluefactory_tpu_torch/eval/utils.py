@@ -1,11 +1,10 @@
-"""Per-pair evaluation of homography benchmarks (counterpart of
-gluefactory_tpu/eval/utils.py:26-197; the epipolar and relative-pose
-functions wait for the relative-pose benchmarks, ROADMAP Queue 1 item 6).
+"""Per-pair evaluation of homography and relative-pose benchmarks
+(counterpart of gluefactory_tpu/eval/utils.py:26-224).
 
 Predictions come in as numpy arrays (the export file); the selection of the
-matched pairs is numpy on the host, the geometry (symmetric error, weighted
-DLT, RANSAC, corner error) runs on `device`, the card unless the caller asks
-for the CPU.
+matched pairs is numpy on the host, the geometry (symmetric and epipolar
+errors, weighted DLT, RANSAC, corner and pose errors) runs on `device`, the
+card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ import numpy as np
 import torch
 
 from ..estimators.base_estimator import load_estimator
+from ..geometry.epipolar import generalized_epi_dist, relative_pose_error
 from ..geometry.homography import homography_corner_error, solve_homography_dlt, sym_homography_error
 from ..utils.tools import AUCMetric
 
@@ -100,6 +100,61 @@ def eval_homography_dlt(data: dict, pred: dict, device: Any = "cuda") -> dict:
     return {"H_error_dlt": e if np.isfinite(e) else float("inf")}
 
 
+def eval_matches_epipolar(data: dict, pred: dict, device: Any = "cuda") -> dict:
+    """Epipolar precision of the matches: the share whose symmetric epipolar
+    distance under the ground-truth pose, in normalised units, is under
+    1e-4, 5e-4 and 1e-3."""
+    kp0, kp1 = pred["keypoints0"], pred["keypoints1"]
+    pts0, pts1, _ = get_matches_scores(kp0, kp1, pred["matches0"], pred["matching_scores0"])
+    results = {}
+    if len(pts0) == 0:
+        results.update({f"epi_prec@{th}": 0.0 for th in ("1e-4", "5e-4", "1e-3")})
+    else:
+        cam = lambda v: data[v]["camera"].to(device)
+        err = generalized_epi_dist(_f32(pts0, device)[None], _f32(pts1, device)[None],
+                                   cam("view0"), cam("view1"), data["T_0to1"].to(device),
+                                   all_pairs=False, essential=True)[0].cpu().numpy()
+        for th in ("1e-4", "5e-4", "1e-3"):
+            results[f"epi_prec@{th}"] = float((err < float(th)).mean())
+    results["num_matches"] = int(len(pts0))
+    results["num_keypoints"] = (np.asarray(kp0).shape[-2] + np.asarray(kp1).shape[-2]) / 2
+    return results
+
+
+def eval_relative_pose_robust(data: dict, pred: dict, conf: dict, device: Any = "cuda") -> dict:
+    """Robust relative pose (RANSAC by default) at `conf["ransac_th"]`
+    pixels and its error: the larger of the rotation and translation angles
+    in degrees."""
+    return eval_relative_pose_robust_sweep(data, pred, conf, [conf["ransac_th"]], device)[0]
+
+
+def eval_relative_pose_robust_sweep(data: dict, pred: dict, conf: dict, thresholds,
+                                    device: Any = "cuda") -> list:
+    """`eval_relative_pose_robust` at each of `thresholds`, one estimator
+    call for all of them (the same draws for every threshold, as the JAX
+    package's evaluation gives them): a list of result dicts."""
+    failed = {"rel_pose_error": float("inf"), "ransac_inl": 0, "ransac_inl%": 0.0}
+    pts0, pts1, _ = get_matches_scores(pred["keypoints0"], pred["keypoints1"],
+                                       pred["matches0"], pred["matching_scores0"])
+    if len(pts0) < 8:
+        return [dict(failed) for _ in thresholds]
+    conf = {**conf, "ransac_th": [float(t) for t in thresholds]}
+    estimator = load_estimator("relative_pose", conf.get("estimator", "jax_ransac"))(conf, device)
+    est = estimator({"m_kpts0": pts0, "m_kpts1": pts1, "camera0": data["view0"]["camera"],
+                     "camera1": data["view1"]["camera"]})
+    M = est["M_0to1"]
+    t_err, r_err = relative_pose_error(data["T_0to1"].to(device), M.R, M.t)
+    # one transfer: success, the errors and the inliers of every threshold
+    success, err, inl = (t.cpu().numpy() for t in (est["success"], torch.maximum(r_err, t_err),
+                                                   est["inliers"]))
+    out = []
+    for ok, e, inl_t in zip(success, err, inl.astype(bool)):
+        out.append({"rel_pose_error": float(e), "ransac_inl": int(inl_t.sum()),
+                    "ransac_inl%": float(inl_t.mean()) if len(inl_t) else 0.0}
+                   if ok else dict(failed))
+    return out
+
+
 def eval_poses(pose_results: dict, auc_ths: list, key: str, unit: str = "°"):
     """Summarise a {threshold: {key: [per-pair errors]}} sweep: the AUC at
     each of `auc_ths` for the threshold of best mean AUC, and the medians of
@@ -121,5 +176,6 @@ def eval_poses(pose_results: dict, auc_ths: list, key: str, unit: str = "°"):
 
 __all__ = [
     "get_matches_scores", "eval_matches_homography", "eval_homography_robust",
-    "eval_homography_robust_sweep", "eval_homography_dlt", "eval_poses",
+    "eval_homography_robust_sweep", "eval_homography_dlt", "eval_matches_epipolar",
+    "eval_relative_pose_robust", "eval_relative_pose_robust_sweep", "eval_poses",
 ]

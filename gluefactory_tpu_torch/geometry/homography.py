@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.linalg import smallest_eigenvector
-from .utils import from_homogeneous, to_homogeneous
+from .utils import from_homogeneous, hartley_matrix, hartley_normalize, to_homogeneous
 
 
 def _center_patch(shape, patch_shape=None):
@@ -140,13 +140,7 @@ def solve_homography_dlt(
     if weights is None:
         weights = torch.ones(P.shape[1:-1], dtype=dtype, device=P.device)
     w = weights.to(dtype)[..., None]
-    wsum = w.sum(-2, keepdim=True).clamp(min=1e-8)
-    # weighted Hartley normalisation of both sets: zero mean, mean distance sqrt(2)
-    mean = (P * w).sum(-2, keepdim=True) / wsum  # (2, ..., 1, 2)
-    c = P - mean
-    scale = ((c.norm(dim=-1, keepdim=True) * w).sum(-2, keepdim=True) / wsum).clamp(min=1e-8)
-    s = math.sqrt(2.0) / scale  # (2, ..., 1, 1)
-    pn = c * s
+    pn, s, mean = hartley_normalize(P, w[..., 0])  # s (2, ..., 1), mean (2, ..., 2)
     # rows [p, 0, -u p] and [0, p, -v p] with p = (x, y, 1) in view 0, (u, v) in view 1
     p = torch.cat([pn[0], torch.ones_like(pn[0][..., :1])], -1)
     z = torch.zeros_like(p)
@@ -155,14 +149,10 @@ def solve_homography_dlt(
                    torch.cat([z, p, p * uv[..., 1:2]], -1)], -2) * torch.cat([w, w], -2)
     Hn = smallest_eigenvector(A.transpose(-1, -2) @ A).unflatten(-1, (3, 3))
     # H = T1^-1 Hn T0 with T = [[s, 0, -s mx], [0, s, -s my], [0, 0, 1]]
-    s0, s1 = s[0][..., 0, :], s[1][..., 0, :]  # (..., 1)
-    m0, m1 = mean[0][..., 0, :], mean[1][..., 0, :]  # (..., 2)
-    zero, one = torch.zeros_like(s0), torch.ones_like(s0)
-    t0 = -(s0 * m0)
-    T0 = torch.cat([s0, zero, t0[..., 0:1], zero, s0, t0[..., 1:2], zero, zero, one], -1)
-    r1 = s1.reciprocal()
+    zero, one = torch.zeros_like(s[1]), torch.ones_like(s[1])
+    r1, m1 = s[1].reciprocal(), mean[1]
     T1inv = torch.cat([r1, zero, m1[..., 0:1], zero, r1, m1[..., 1:2], zero, zero, one], -1)
-    H = T1inv.unflatten(-1, (3, 3)) @ Hn @ T0.unflatten(-1, (3, 3))
+    H = T1inv.unflatten(-1, (3, 3)) @ Hn @ hartley_matrix(s[0], mean[0])
     h22 = H[..., 2:3, 2:3]
     return H / torch.where(h22.abs() < 1e-8, torch.ones_like(h22), h22)
 

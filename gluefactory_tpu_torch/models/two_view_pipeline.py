@@ -2,9 +2,10 @@
 gluefactory_tpu/models/two_view_pipeline.py).
 
 extractor -> matcher -> ground_truth, each optional. The ground-truth
-component labels the extracted keypoints for `loss` (or already in the
-forward with `run_gt_in_forward`). Filter and solver components are not
-ported yet and raise when configured. The extractor is frozen: it runs in
+component (`homography_matcher` from `H_0to1`, or `depth_matcher` from the
+cameras, depths and relative poses of a 3D dataset) labels the extracted
+keypoints for `loss` (or already in the forward with `run_gt_in_forward`).
+Filter and solver components are not ported yet and raise when configured. The extractor is frozen: it runs in
 eval mode under `torch.no_grad()`, so no gradient reaches it, and a
 trainable one raises. The matcher decides itself whether it records
 gradients (`is_training`). Match convention: matches0[i] is the index in

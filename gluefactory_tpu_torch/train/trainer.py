@@ -23,8 +23,9 @@ resumes from the experiment's last checkpoint; `train()` runs the epochs:
     matplotlib and is left out here); a new best `best_key` value writes
     `checkpoint_best`;
   - every `save_every_iter` steps and at the end of an epoch a checkpoint
-    (pruned to `keep_last_checkpoints`), then `train.benchmarks` through
-    `eval.run_benchmark` on the live weights;
+    (pruned to `keep_last_checkpoints`), then `train.benchmarks` (hpatches,
+    synthetic, synthetic_pose) through `eval.run_benchmark` on the live
+    weights;
   - SIGINT finishes the step, writes an `_interrupted` checkpoint and
     returns; `profile` traces the steps [profile_start, profile_end) with
     `torch.profiler` into `<output_dir>/profile`.
@@ -64,6 +65,7 @@ from ..utils.experiments import (
 from ..utils.summary import ExperimentWriter
 from ..utils.tensor import batch_to_device
 from ..utils.tools import AverageMetric, MedianMetric, PRMetric, set_seed
+from ..weights import load_hermetic
 from .step import TrainState, make_optimizer, make_train_step
 
 logger = logging.getLogger(__name__)
@@ -93,8 +95,9 @@ default_train_conf = {
     # {benchmark name: benchmark conf}, run at the end of every epoch
     "benchmarks": {},
     "plot": None,
-    # seed the parameters from the best checkpoint of another experiment:
-    # tensors of the same name and shape are copied, the rest stay fresh
+    # seed the parameters from the best checkpoint of another experiment, or
+    # from an .npz artifact (a path, else one under the repository): tensors
+    # of the same name and shape are copied, the rest stay fresh
     "load_experiment": None,
     # the module of this model the loaded checkpoint is (e.g. "extractor")
     "load_experiment_prefix": None,
@@ -169,7 +172,11 @@ class Trainer:
         self.dataset = get_dataset(conf.data.name)(to_dict(conf.data))
         if conf.train.get("load_experiment"):
             src = str(conf.train.load_experiment)
-            loaded, _ = load_checkpoint(get_best_checkpoint(src), device=self.device)
+            if src.endswith(".npz"):  # a committed artifact, e.g. weights/hermetic/*.npz
+                path = Path(src) if Path(src).exists() else PACKAGE.parent / src
+                loaded = {"model": load_hermetic(path, device=self.device)}
+            else:
+                loaded, _ = load_checkpoint(get_best_checkpoint(src), device=self.device)
             n, fresh = graft_state(self.model, loaded["model"],
                                    conf.train.get("load_experiment_prefix"))
             logger.info("Fine-tune init from '%s': %d tensors copied%s", src, n,

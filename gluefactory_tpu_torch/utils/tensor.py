@@ -1,10 +1,13 @@
 """Nested dict/array helpers (counterpart of gluefactory_tpu/utils/tensor.py):
-leaves are numpy arrays or torch tensors."""
+leaves are numpy arrays or torch tensors; a `Pose` or `Camera` is mapped
+leaf by leaf and stays a wrapper."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..geometry.wrappers import TensorWrapper
 
 
 def map_tensor(tree, fn):
@@ -16,6 +19,8 @@ def map_tensor(tree, fn):
         return type(tree)(map_tensor(v, fn) for v in tree)
     if isinstance(tree, (str, bytes)) or tree is None:
         return tree
+    if isinstance(tree, TensorWrapper):
+        return tree.map(fn)
     return fn(tree)
 
 

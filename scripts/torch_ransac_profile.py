@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where one homography RANSAC call of the port spends its time on the card.
+"""Where one homography or relative-pose RANSAC call of the port spends its
+time on the card.
 
-    python3 scripts/torch_ransac_profile.py [--matches N] [--cpu-ops]
+    python3 scripts/torch_ransac_profile.py [--matches N] [--cpu-ops] [--relpose]
 
 On synthetic correspondences (N matches, half of them outliers, padded to
-the estimator's bucket): the median host-clock time of one estimator call
-(K = 1024 hypotheses, two rounds, synchronised), the kernels it launches and
+the estimator's bucket; with `--relpose` a random 3D scene seen by two
+cameras at f = 500 px and the relative-pose estimator, K = 8192, at 1 px):
+the median host-clock time of one estimator call (homographies: K = 1024
+hypotheses, two rounds, synchronised), the kernels it launches and
 their summed device time (torch.profiler), the host reads it makes (the
 eigensolver's status checks, `cudaStreamSynchronize`) and the host time
 blocked in them, the ops with the most host time, the round trip of one
 scalar read on an idle card, and the batched 9x9 eigensolve alone in float64
-and float32 at the call's two batch sizes (1024 hypotheses, 12 candidates).
+and float32 at the call's two batch sizes (K hypotheses, 12 candidates).
 Prints the card's name and power limit first. Needs a CUDA device.
 
 `--cpu-ops` instead counts the aten ops one call dispatches (at one
@@ -55,12 +58,42 @@ def correspondences(n):
     return {"m_kpts0": p0.astype(np.float32), "m_kpts1": p1.astype(np.float32)}
 
 
-def count_ops(n) -> int:
+def pose_correspondences(n):
+    import numpy as np
+    import torch
+
+    from gluefactory_tpu_torch.geometry.wrappers import Camera
+
+    rng = np.random.RandomState(0)
+    X = np.c_[rng.uniform(-2, 2, (n, 2)), rng.uniform(4, 8, n)]
+    c, s = np.cos(0.1), np.sin(0.1)  # 5.7 degrees about y
+    R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    X1 = X @ R.T + [0.5, 0.1, 0.05]
+    px = lambda P: P[:, :2] / P[:, 2:] * 500.0 + [320, 240] + rng.randn(n, 2) * 0.5
+    p0, p1 = px(X), px(X1)
+    p1[: n // 2] = rng.uniform(0, [640, 480], (n // 2, 2))
+    cam = Camera(torch.tensor([640.0, 480.0, 500.0, 500.0, 320.0, 240.0]))
+    return {"m_kpts0": p0.astype(np.float32), "m_kpts1": p1.astype(np.float32),
+            "camera0": cam, "camera1": cam}
+
+
+def make_estimator(relpose, th, device):
+    """(estimator, data maker, hypotheses) of the homography or the
+    relative-pose estimator."""
+    if relpose:
+        from gluefactory_tpu_torch.estimators.relative_pose.torch_ransac import (
+            TorchRansacRelativePose)
+
+        return TorchRansacRelativePose({"ransac_th": th}, device=device), pose_correspondences, 8192
+    from gluefactory_tpu_torch.estimators.homography.torch_ransac import TorchRansacHomography
+
+    return TorchRansacHomography({"ransac_th": th}, device=device), correspondences, 1024
+
+
+def count_ops(n, relpose=False) -> int:
     """The aten ops one estimator call dispatches on the CPU (each is a
     kernel launch, or a view, on the card)."""
     from torch.utils._python_dispatch import TorchDispatchMode
-
-    from gluefactory_tpu_torch.estimators.homography.torch_ransac import TorchRansacHomography
 
     class Count(TorchDispatchMode):
         ops = 0
@@ -69,10 +102,11 @@ def count_ops(n) -> int:
             self.ops += 1
             return func(*args, **(kwargs or {}))
 
-    data = correspondences(n)
-    for th in (3.0, [0.5, 1.0, 1.5, 2.0, 2.5, 3.0]):
+    for th in (1.0 if relpose else 3.0, [0.5, 1.0, 1.5, 2.0, 2.5, 3.0]):
+        est, make, _ = make_estimator(relpose, th, "cpu")
+        data = make(n)
         with Count() as c:
-            TorchRansacHomography({"ransac_th": th}, device="cpu")(data)
+            est(data)
         print(f"[ransac] one call, {n} matches, {len(th) if isinstance(th, list) else 1} "
               f"threshold(s): {c.ops} aten ops dispatched")
     return 0
@@ -84,10 +118,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--matches", type=int, default=200)
     parser.add_argument("--cpu-ops", action="store_true")
+    parser.add_argument("--relpose", action="store_true")
     args = parser.parse_args()
     n = args.matches
     if args.cpu_ops:
-        return count_ops(n)
+        return count_ops(n, args.relpose)
     if not torch.cuda.is_available():
         print("torch_ransac_profile: needs a CUDA device", file=sys.stderr)
         return 1
@@ -95,13 +130,12 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}; torch {torch.__version__}")
 
-    from gluefactory_tpu_torch.estimators.homography.torch_ransac import TorchRansacHomography
-
-    data = correspondences(n)
-    est = TorchRansacHomography({"ransac_th": 3.0}, device="cuda")
+    est, make, k = make_estimator(args.relpose, 1.0 if args.relpose else 3.0, "cuda")
+    data = make(n)
     call = lambda: bool(est(data)["success"])
     med, lo, hi = host_ms(call)
-    print(f"[ransac] one call, {n} matches, K = 1024, two rounds: median {med:.2f} ms "
+    kind = "relative pose" if args.relpose else "homography"
+    print(f"[ransac] one {kind} call, {n} matches, K = {k}, two rounds: median {med:.2f} ms "
           f"({lo:.2f}-{hi:.2f}) of 20")
 
     from torch.profiler import ProfilerActivity, profile
@@ -141,7 +175,7 @@ def main() -> int:
     med, lo, hi = host_ms(lambda: one.add_(1).item(), iters=200)
     print(f"[read] one launch and a read of its scalar on an idle card: median {med:.3f} ms "
           f"({lo:.3f}-{hi:.3f}) of 200, host clock")
-    for batch in (1024, 12):
+    for batch in (k, 12):
         A = torch.randn(batch, 9, 20, device="cuda", dtype=torch.float64)
         A = A @ A.transpose(-1, -2)
         for dtype in (torch.float64, torch.float32):
