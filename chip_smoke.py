@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SuperPoint-open + LightGlue (full depth,
-adaptive, training) and SuperGlue on one GPU.
+adaptive, training), SuperGlue, the benchmarks and the multispectral slice
+on one GPU.
 
     python3 chip_smoke.py [--train-batch PAIRS]
 
@@ -83,7 +84,25 @@ adaptive, training) and SuperGlue on one GPU.
      a 1e-7 change of its input, at least 5: rel_pose_error within 0.5 deg,
      their mAA within 0.02); one estimator
      call's ms, launches and host reads (one threshold, the sweep of six). The kernel rows add K5, K6b and K7b at the
-     2048-keypoint training shape.
+     2048-keypoint training shape;
+ 11. the multispectral slice: (a) configs/superpoint-open+lightglue_MP.json
+     through the trainer at its width (batch 32 optical/thermal pairs at
+     256 x 320, 512 keypoints forced, LightGlue 9 x 256 fp32 checkpointed,
+     the committed weights grafted), cut to 3 steps, one validation and the
+     MP benchmark on its 7 test pairs: the first step within 1e-4 of the
+     plain path and two gradients within 1e-3 max|g|, launches (18 K5, 18
+     K6b, 27 K7b a step; 9 K5 + 9 K6b the validation; K1 = K2 = 9, K4 = 1 a
+     benchmark pair), ms a step alone and fed by the loader, the loader's
+     pairs/s alone, peak memory; (b) `python -m gluefactory_tpu_torch.eval.MP`
+     (its `main`) on the 7 test pairs at 256 x 320, RANSAC at 0.5 px, for
+     SuperPoint-open (the committed weights), MultiPoint and XPoint (swin)
+     (seeded weights) feeding the committed LightGlue in fp32: K1 = K2 = 9,
+     K4 = 1 a pair, `matches0` equal to the plain path on >= 99% and their
+     scores within 1e-3, H-AUC at 1/3/5 px (DLT, RANSAC), precision@3px,
+     export pairs/s and eval seconds; MultiPoint's thermal view through the
+     thermal encoder inside the stacked extraction of both views; (c) the
+     forwards of SuperPoint-open, MultiPoint, XPoint and
+     SuperPoint-MagicLeap at b8, 256 x 320.
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -2106,6 +2125,417 @@ def run_depth_slice():
     return {f"{k} 2048": v for k, v in md_step.items()}
 
 
+# ----------------------------------------------------------------- phase 11
+MP_CONF = "superpoint-open+lightglue_MP"  # LightGlue on multispectral pairs
+MP_STEPS = 3  # training steps of TRAIN_B pairs
+MP_TEST_PAIRS = 7  # the MP benchmark's synthetic test split (64 pairs, 10% test)
+MP_EXTRACTORS = {
+    "superpoint_open": {"name": "superpoint_open", "max_num_keypoints": 512,
+                        "detection_threshold": 0.0, "nms_radius": 3, "dtype": None},
+    "multipoint": {"name": "gluefactory_tpu_torch.multipoint.models.multipoint",
+                   "max_num_keypoints": 512},
+    "xpoint_swin": {"name": "gluefactory_tpu_torch.multipoint.models.xpoint",
+                    "backbone": "swin", "max_num_keypoints": 512},
+}
+MP_LIGHTGLUE = {"name": "lightglue", "filter_threshold": 0.1}
+# summaries that are finite whatever the matches: a pair without a homography
+# has an infinite error, which the medians of seeded extractors show
+MP_FINITE = ("H_error_dlt@1px", "H_error_dlt@3px", "H_error_dlt@5px", "H_error_ransac@1px",
+             "H_error_ransac@3px", "H_error_ransac@5px", "H_error_ransac_mAA", "mprec@1px",
+             "mprec@3px", "mnum_matches", "mnum_keypoints")
+
+
+def mp_train_conf(init):
+    """The MP configuration at its width (batch TRAIN_B, 256 x 320 synthetic
+    pairs, 512 keypoints forced, LightGlue 9 x 256 fp32 checkpointed), cut to
+    MP_STEPS steps and one validation of TRAIN_B pairs (a pool of 128, three
+    quarters for training), the committed weights grafted from `init`, and
+    the MP benchmark (its 7 test pairs) with the trained LightGlue in eval
+    mode at the end of the epoch."""
+    from gluefactory_tpu_torch.utils.config import load_conf, merge
+
+    conf = load_conf(MP_CONF)
+    bench = {"model": {"extractor": {**conf["model"]["extractor"], "dtype": None},
+                       "matcher": MP_LIGHTGLUE}}
+    return merge(conf, {
+        "data": {"batch_size": TRAIN_B,
+                 "mp": {"synthetic": {"pool": 128}, "train_fraction": 0.75}},
+        "train": {"epochs": 1, "log_every_iter": 1, "load_experiment": init,
+                  "benchmarks": {"MP": bench}},
+    })
+
+
+def check_mp_training(work):
+    """Phase 11a: the first step against the plain path, then the trainer's
+    epoch with launches counted a step, a validation and the benchmark;
+    returns (ms a step alone, ms a step with the loader, peak MiB, loader
+    pairs/s, benchmark summaries)."""
+    import statistics
+
+    import torch
+
+    import gluefactory_tpu_torch.eval as gf_eval
+    from gluefactory_tpu_torch.datasets.mp_image_pairs import MPImagePairs
+    from gluefactory_tpu_torch.train import trainer as tmod
+    from gluefactory_tpu_torch.utils import experiments as exps
+    from gluefactory_tpu_torch.utils.config import merge
+    from gluefactory_tpu_torch.utils.tensor import batch_to_device
+    from gluefactory_tpu_torch.weights import load_hermetic
+
+    exps.TRAINING_PATH = work
+    exps.save_experiment("mp_init", {"model": load_hermetic(device="cpu")}, {}, 0, 0,
+                         is_best=True)
+    conf = mp_train_conf("mp_init")
+
+    def build(flash, name):
+        tr = tmod.Trainer(merge(conf, {"model": {"matcher": {"flash": flash}}}), name,
+                          exps.experiment_dir(name), device="cuda")
+        tr.build()
+        return tr
+
+    trainer = build(True, "mp")
+    mconf, econf = trainer.model.matcher.conf, trainer.model.extractor.conf
+    if (mconf.n_layers, mconf.descriptor_dim, mconf.mp, mconf.checkpointed) != (9, D, False, True):
+        fail("MP training: LightGlue is not 9 x 256, fp32, checkpointed")
+    loader = trainer.dataset.get_data_loader("train", epoch=0)
+    first = batch_to_device(next(loader), "cuda")
+    del loader
+    if tuple(first["view0"]["image"].shape) != (TRAIN_B, 256, 320, 1):
+        fail(f"MP training: a batch of {tuple(first['view0']['image'].shape)} images")
+    optical = (first["view0"]["is_optical"], first["view1"]["is_optical"])
+    if not (bool(optical[0].all()) and not bool(optical[1].any())):
+        fail("MP training: view0 is not optical or view1 not thermal")
+    named = ("matcher.self_Wqkv_w", "matcher.assign_proj_w")
+
+    def loss_and_grads(tr):
+        params = dict(tr.model.named_parameters())
+        losses, _ = tr.model.loss(tr.model(first), first)
+        total = losses["total"].mean()
+        return float(total.detach()), torch.autograd.grad(total, [params[k] for k in named])
+
+    total, grads = loss_and_grads(trainer)
+    plain = build(False, "mp_plain")
+    ref_total, ref_grads = loss_and_grads(plain)
+    del plain
+    torch.cuda.empty_cache()
+    if not abs(total - ref_total) <= 1e-4 * abs(ref_total):
+        fail(f"MP training: first total {total} against the plain path's {ref_total} (rtol 1e-4)")
+    worst = []
+    for key, g, r in zip(named, grads, ref_grads):
+        diff, top = float((g - r).abs().max()), float(r.abs().max())
+        if not (top > 0 and diff <= 1e-3 * top + 1e-7):
+            fail(f"MP training: gradient of {key} {diff:.3g} from the plain path's "
+                 f"(max |g| {top:.3g})")
+        worst.append(f"{key} {diff:.3g} (max |g| {top:.3g})")
+    log(f"[mp train] {TRAIN_B} pairs x {econf.max_num_keypoints} keypoints at 256 x 320: first "
+        f"total {total:.6f}, plain path {ref_total:.6f} (rtol 1e-4); gradients "
+        + "; ".join(worst) + " (bar 1e-3 max|g| + 1e-7)")
+
+    steps, evals, benches = [], [], []
+    step_fn, eval_fn = trainer.train_step, trainer.do_evaluation
+
+    def step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset_entry_counts()
+        state, losses = step_fn(state, batch)
+        torch.cuda.synchronize()
+        steps.append((t0, time.perf_counter(), entry_counts(),
+                      {k: float(v) for k, v in losses.items()}))
+        return state, losses
+
+    def evaluate(epoch, it):
+        reset_entry_counts()
+        results = eval_fn(epoch, it)
+        torch.cuda.synchronize()
+        evals.append((entry_counts(), results))
+        return results
+
+    saved = gf_eval.run_benchmark
+
+    def counted_benchmark(*a, **k):
+        torch.cuda.synchronize()
+        reset_entry_counts()
+        t0 = time.perf_counter()
+        summaries, figures = saved(*a, **k)
+        torch.cuda.synchronize()
+        benches.append((entry_counts(), summaries, time.perf_counter() - t0))
+        return summaries, figures
+
+    trainer.train_step, trainer.do_evaluation = step, evaluate
+    gf_eval.run_benchmark = counted_benchmark
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        trainer.train()
+        t_run = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    finally:
+        gf_eval.run_benchmark = saved
+        trainer.train_step, trainer.do_evaluation = step_fn, eval_fn
+    per_step = {"K5": 18, "K6b": 18, "K6a": 0, "K7b self": 9, "K7b cross": 18,
+                "K1": 0, "K2": 0, "K4": 0}
+    if len(steps) != MP_STEPS:
+        fail(f"MP training: {len(steps)} steps, expected {MP_STEPS}")
+    for i, (_, _, counts, losses) in enumerate(steps):
+        if counts != per_step:
+            fail(f"MP training, step {i}: launches {counts}, expected {per_step}")
+        if not all(math.isfinite(v) for v in losses.values()) or losses["skipped_nonfinite"]:
+            fail(f"MP training, step {i}: {losses}")
+    if len(evals) != 1 or not math.isfinite(evals[0][1]["loss/total"]):
+        fail(f"MP training: {len(evals)} validations, expected one with a finite loss")
+    counts = evals[0][0]
+    if (counts["K5"], counts["K6b"], counts["K7b self"], counts["K7b cross"]) != (9, 9, 0, 0):
+        fail(f"MP training, validation: launches {counts}, expected 9 K5 + 9 K6b")
+    want = {"K1": 9 * MP_TEST_PAIRS, "K2": 9 * MP_TEST_PAIRS, "K4": MP_TEST_PAIRS}
+    if len(benches) != 1:
+        fail(f"MP training: {len(benches)} benchmark runs, expected one (a failed one only logs)")
+    bcounts, bsum, bench_s = benches[0]
+    if {k: bcounts[k] for k in want} != want or bcounts["K5"] or bcounts["K7b self"]:
+        fail(f"MP training, benchmark: launches {bcounts}, expected {want} and no training kernel")
+    bad = [k for k in MP_FINITE if not math.isfinite(bsum[k])]
+    if bad:
+        fail(f"MP training, benchmark: non-finite summaries {bad}")
+    # a step with the loader: from one step's start to the next's, inside train()
+    with_loader = [b[0] - a[0] for a, b in zip(steps, steps[1:])]
+    step_only = [z - a for a, z, _, _ in steps]
+    # the loader alone, a fresh epoch of the configuration's loader
+    ds = MPImagePairs(conf["data"])
+    t0 = time.perf_counter()
+    n = sum(batch["view0"]["image"].shape[0] for batch in ds.get_data_loader("train", epoch=1))
+    pps = n / (time.perf_counter() - t0)
+    med = lambda xs: statistics.median(xs) * 1e3
+    log(f"[mp train] {MP_STEPS} steps + validation + MP benchmark in {t_run:.2f} s; launches a "
+        f"step {per_step}, the validation {counts['K5']} K5 + {counts['K6b']} K6b, the benchmark "
+        f"{ {k: bcounts[k] for k in want} } ({bench_s:.2f} s); losses total "
+        + " ".join(f"{x[3]['total']:.4f}" for x in steps)
+        + f"; val loss/total {evals[0][1]['loss/total']:.4f}")
+    log(f"[mp train] ms a step alone {med(step_only):.2f} (median of {len(step_only)}); with the "
+        f"loader {med(with_loader):.2f} (median of {len(with_loader)}, step start to step start "
+        f"in train()); the loader alone {pps:.2f} pairs/s ({n} pairs, "
+        f"{conf['data'].get('num_workers', 0)} workers, {TRAIN_B / pps * 1e3:.0f} ms a batch); "
+        f"peak {peak:.0f} MiB")
+    del trainer, first
+    torch.cuda.empty_cache()
+    return med(step_only), med(with_loader), peak, pps, bsum
+
+
+def mp_checkpoint(work, name):
+    """An .npz checkpoint for the MP command line: the extractor's seeded
+    initialisation (torch.manual_seed(0)) in the flax layout beside the
+    committed LightGlue; None for SuperPoint-open (the committed file)."""
+    import numpy as np
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.weights import HERMETIC, params_to_jax
+
+    if name == "superpoint_open":
+        return HERMETIC
+    torch.manual_seed(0)
+    conf = MP_EXTRACTORS[name]
+    ext = get_model(conf["name"])(conf, device="cpu")
+    tree = params_to_jax({f"extractor.{k}": v for k, v in ext.state_dict().items()})
+    flat = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{path}/{k}")
+            else:
+                flat[f"{path}/{k}"[1:]] = v
+
+    walk(tree, "")
+    with np.load(str(HERMETIC)) as f:
+        flat.update({k: f[k] for k in f.files if "/matcher/" in k})
+    path = work / f"{name}_lightglue.npz"
+    np.savez(path, **flat)
+    return path
+
+
+def run_mp_cli(work, name, plain=False):
+    """`python -m gluefactory_tpu_torch.eval.MP` (its `main`) with the
+    extractor `name` and LightGlue, RANSAC at 0.5 px, K1, K2, K4 counted;
+    returns (summaries, timings, counts, predictions)."""
+    import torch
+
+    from gluefactory_tpu_torch.eval import MP
+    from gluefactory_tpu_torch.utils.export_predictions import load_predictions
+
+    runs = []
+    run = MP.MPPipeline.run
+
+    def recorded(self, *a, **k):
+        runs.append(self)
+        return run(self, *a, **k)
+
+    tag = f"{name}_plain" if plain else name
+    argv = ["--checkpoint", str(mp_checkpoint(work, name)), "--tag", tag, "eval.ransac_th=0.5",
+            "model.extractor=" + json.dumps(MP_EXTRACTORS[name]),
+            "model.matcher=" + json.dumps(MP_LIGHTGLUE)]
+    MP.EVAL_PATH, MP.MPPipeline.run = work, recorded
+    try:
+        torch.cuda.synchronize()
+        for fn in hpatches_counters()[1:]:
+            fn.launches = 0
+        with plain_path() if plain else contextlib.nullcontext():
+            summaries = MP.main(argv)
+        torch.cuda.synchronize()
+        counts = [fn.launches for fn in hpatches_counters()[1:]]
+    finally:
+        MP.MPPipeline.run = run
+    return summaries, runs[0].timings, counts, load_predictions(work / "MP" / tag /
+                                                                "predictions.npz")
+
+
+def mp_test_batch():
+    """The first pair of the MP test split on the card; logs the pairs/s of
+    the split's loader alone (one pass, the dataset built included, as the
+    export runs it)."""
+    from gluefactory_tpu_torch.eval.MP import MPPipeline
+    from gluefactory_tpu_torch.utils.tensor import batch_to_device
+
+    t0 = time.perf_counter()
+    batches = list(MPPipeline(device="cuda").get_dataloader())
+    pps = len(batches) / (time.perf_counter() - t0)
+    log(f"[mp loader] the export's loader alone: {pps:.2f} pairs/s ({len(batches)} pairs)")
+    return batch_to_device(batches[0], "cuda")
+
+
+def check_mp_routing(batch):
+    """MultiPoint on the first MP test pair on the card: the thermal view
+    goes through the thermal encoder, also inside the stacked extraction of
+    both views (the eval's batch of one pair)."""
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+
+    torch.manual_seed(0)
+    pipe = get_model("two_view_pipeline")({"extractor": MP_EXTRACTORS["multipoint"]},
+                                          device="cuda").eval()
+    ext = pipe.extractor
+    with torch.no_grad():
+        stacked = pipe(batch)["logits1"]
+        img = batch["view1"]["image"].permute(0, 3, 1, 2)
+        thermal = ext.detector_head(ext.encoder_thermal(img, False), False).permute(0, 2, 3, 1)
+        optical = ext.detector_head(ext.encoder_optical(img, False), False).permute(0, 2, 3, 1)
+    if not pipe._can_batch_extract(batch):
+        fail("MP routing: the eval batch is not extracted in one call")
+    d_thermal = float((stacked - thermal).abs().max())
+    d_optical = float((stacked - optical).abs().max())
+    log(f"[mp routing] MultiPoint, view1 in the stacked call: {d_thermal:.2e} from the thermal "
+        f"encoder alone, {d_optical:.2e} from the optical one; is_optical "
+        f"{batch['view0']['is_optical'].tolist()} / {batch['view1']['is_optical'].tolist()}")
+    if not (d_thermal <= 1e-4 and d_optical > 1e-3):
+        fail("MP routing: the thermal view did not go through the thermal encoder")
+
+
+def hold_mp_assignment(work, name, batch):
+    """LightGlue's log assignment on the first MP test pair, the kernels
+    against the plain path, with the CLI's extractor and weights. It is dense,
+    so it holds K1, K2 and K4 also where seeded extractors give no match."""
+    import torch
+
+    from gluefactory_tpu_torch.eval.export_helper import load_model
+
+    conf = {"name": "two_view_pipeline", "extractor": MP_EXTRACTORS[name],
+            "matcher": MP_LIGHTGLUE}
+    pipe = load_model(conf, mp_checkpoint(work, name), "cuda")
+    with torch.no_grad():
+        out = pipe(batch)["log_assignment"]
+        with plain_path():
+            ref = pipe(batch)["log_assignment"]
+    finite = torch.isfinite(ref)
+    if not bool((torch.isfinite(out) == finite).all()) or not bool(finite.any()):
+        fail(f"MP {name}: the log assignment's finite entries differ from the plain path's")
+    diff = (out - ref)[finite].abs()
+    err = float(diff.max())
+    excess = float((diff - 1e-4 * ref[finite].abs()).max())
+    rows = (out[:, :-1].amax(-1) - ref[:, :-1].amax(-1)).abs().max()
+    log(f"[mp {name}] log assignment {tuple(out.shape)} against the plain path: within "
+        f"{err:.3g} (bar 1e-3 + 1e-4 |value|, {excess:.3g} above 1e-4 |value|), |values| up to "
+        f"{float(ref[finite].abs().max()):.3g}, row maxima within {float(rows):.3g}")
+    if not excess <= 1e-3:
+        fail(f"MP {name}: log assignment {err:.3g} from the plain path (bar 1e-3 + 1e-4 |value|)")
+
+
+def mp_forward_ms():
+    """Forward ms of each extractor at b8, 256 x 320 (CUDA events)."""
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    img = texture(gen, 8, 256, 320).permute(0, 2, 3, 1).contiguous()
+    data = {"image": img, "is_optical": torch.tensor([True, False] * 4, device="cuda")}
+    confs = {**MP_EXTRACTORS,
+             "superpoint_open bf16": {**MP_EXTRACTORS["superpoint_open"], "dtype": "bfloat16"},
+             "superpoint_magicleap": {"name": "superpoint_magicleap", "max_num_keypoints": 512,
+                                      "detection_threshold": 0.0, "nms_radius": 3}}
+    out = {}
+    for name, conf in confs.items():
+        torch.manual_seed(0)
+        model = get_model(conf["name"])(conf, device="cuda").eval()
+        with torch.no_grad():
+            pred = model(data)
+            if not all(torch_finite(pred[k]) for k in ("keypoints", "descriptors")):
+                fail(f"MP forward {name}: non-finite outputs")
+            out[name] = timed(lambda: model(data), 5)
+        del model
+    log("[mp forward] b8 at 256 x 320, 512 keypoints, fp32 unless said (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def run_mp_slice():
+    """Phase 11: (a) LightGlue training on MP pairs with its MP benchmark;
+    (b) the MP benchmark by its command line for SuperPoint-open, MultiPoint
+    and XPoint (swin) feeding LightGlue, each against the plain path; the
+    thermal routing; (c) the extractors' forwards."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = ROOT / "outputs" / "chip_smoke_mp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        check_mp_training(work)
+        batch = mp_test_batch()
+        check_mp_routing(batch)
+        for name in MP_EXTRACTORS:
+            s, t, counts, pred = run_mp_cli(work, name)
+            want = [9 * MP_TEST_PAIRS, 9 * MP_TEST_PAIRS, MP_TEST_PAIRS]
+            if counts != want:
+                fail(f"MP {name}: launches K1, K2, K4 {counts}, expected {want}")
+            _, _, plain_counts, ref = run_mp_cli(work, name, plain=True)
+            if plain_counts != [0, 0, 0]:
+                fail(f"MP {name}: the plain path launched {plain_counts}")
+            eq = [(p["matches0"] == ref[k]["matches0"]).mean() for k, p in pred.items()]
+            agree = float(sum(eq) / len(eq))
+            # the scores of the matches both paths made (0 where neither matched)
+            score_diff = max(float(abs(p["matching_scores0"] - ref[k]["matching_scores0"])[
+                p["matches0"] == ref[k]["matches0"]].max()) for k, p in pred.items())
+            bad = [k for k in MP_FINITE if not math.isfinite(s[k])]
+            if agree < 0.99 or score_diff > 1e-3 or bad or len(pred) != MP_TEST_PAIRS:
+                fail(f"MP {name}: matches0 equal to the plain path on {agree:.4f} (bar 0.99), "
+                     f"their scores {score_diff:.3g} apart (bar 1e-3), non-finite summaries "
+                     f"{bad}, {len(pred)} pairs")
+            keys = ("H_error_dlt@1px", "H_error_dlt@3px", "H_error_dlt@5px", "H_error_ransac@1px",
+                    "H_error_ransac@3px", "H_error_ransac@5px", "mprec@3px", "mnum_matches")
+            log(f"[mp {name}] export {MP_TEST_PAIRS / t['export_s']:.2f} pairs/s "
+                f"({t['export_s']:.2f} s), eval phase {t['eval_s']:.2f} s; launches K1 "
+                f"{counts[0]}, K2 {counts[1]}, K4 {counts[2]}; matches0 equal to the plain path "
+                f"on {agree:.4f}, their scores within {score_diff:.3g}; "
+                + ", ".join(f"{k} {s[k]:.4f}" for k in keys)
+                + f", mH_error_dlt {s['mH_error_dlt']}, mH_error_ransac {s['mH_error_ransac']}")
+            hold_mp_assignment(work, name, batch)
+        mp_forward_ms()
+        log(f"[mp] phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     global TRAIN_B
@@ -2283,6 +2713,10 @@ def main() -> int:
 
     # 10. depth-supervised fine-tuning and the synthetic_pose benchmark
     per_step.update(run_depth_slice())
+    torch.cuda.empty_cache()
+
+    # 11. the multispectral slice
+    run_mp_slice()
     torch.cuda.empty_cache()
     for k in kernels:
         if "key" in k:

@@ -19,9 +19,17 @@ Each function repeats OpenCV's semantics on float32 single-channel images:
 - `fill_ellipse`: the filled `cv2.ellipse` over 0-360 degrees: the polygon of
   `ellipse2Poly` (OpenCV's float sine table at whole degrees, the angle
   rounded to a whole degree) filled as OpenCV's convex fill does.
+- `fill_circle`: the filled `cv2.circle` (thickness -1, LINE_8), which
+  OpenCV draws with its integer midpoint `Circle` fill, not through
+  `ellipse2Poly`: each step of the midpoint loop fills four spans.
 - `warp_perspective`: the JAX package's `native/warp_ops.cpp`: dst(x, y)
   samples src at H^-1 (x, y), raw coordinates without a half-pixel offset,
   bilinear, out-of-range neighbours weigh 0, float64 arithmetic.
+- `warp_perspective_cv`: `cv2.warpPerspective(img, H, size)` (INTER_LINEAR,
+  BORDER_CONSTANT 0) as OpenCV 5 computes it: M = H^-1 rounded to float32,
+  source coordinates in float32 (X / W with X = fma(x, M0, y M1 + M2) in
+  the SIMD blocks of a row, fma(x, M0, y M1) + M2 in the scalar tail),
+  then the bilinear sampling of `remap_linear`.
 
 Sums run in float64 and round to float32 where OpenCV stores float32 (after
 the horizontal pass, at the end), so results are within a few float32 ulps
@@ -519,6 +527,33 @@ def fill_ellipse(img: np.ndarray, center, axes, angle: float, color: float) -> n
     return img
 
 
+def fill_circle(img: np.ndarray, center, radius: int, color: float) -> np.ndarray:
+    """`cv2.circle(img, center, radius, color, -1)` in place on a float32
+    (H, W) image: OpenCV's integer midpoint circle, each step filling the
+    rows cy -+ dy over [cx - dx, cx + dx] and cy -+ dx over [cx - dy, cx +
+    dy], spans clipped to the image."""
+    h, w = img.shape[:2]
+    cx, cy = int(center[0]), int(center[1])
+    half: dict = {}  # row -> the widest half-span drawn on it
+    err, dx, dy, plus, minus = 0, int(radius), 0, 1, (int(radius) << 1) - 1
+    while dx >= dy:
+        for k, span in ((dy, dx), (dx, dy)):
+            for row in (cy - k, cy + k):
+                half[row] = max(half.get(row, -1), span)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = (1 if err <= 0 else 0) - 1  # -1 steps dx in, 0 keeps it
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    for row, span in half.items():
+        x0, x1 = max(cx - span, 0), min(cx + span, w - 1)
+        if 0 <= row < h and x0 <= x1:
+            img[row, x0:x1 + 1] = color
+    return img
+
+
 # -------------------------------------------------------------------- warping
 def warp_perspective(img: np.ndarray, H: np.ndarray, size) -> np.ndarray:
     """Warp a float32 (H, W, C) image by the homography H into (w, h) =
@@ -586,6 +621,40 @@ def remap_linear(src: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.nd
     return fma(b, fma(a, p00, p01), fma(a, p10, p11)).numpy()
 
 
+# OpenCV 5's warp kernels take a row in blocks of 16 floats (the x86 build
+# with AVX2 / AVX-512 dispatch) and the remaining columns one at a time
+SIMD_FLOATS = 16
+
+
+def warp_perspective_cv(img: np.ndarray, H: np.ndarray, size) -> np.ndarray:
+    """`cv2.warpPerspective(img, H, size)` of a float32 (H, W) or (H, W, C)
+    image (INTER_LINEAR, border 0) into (w, h) = `size`; (H, W, C) in, (h,
+    w, C) out, every channel on the same coordinates. The multiply-adds that
+    OpenCV fuses are one rounding each (the product is exact in float64)."""
+    w, h = size
+    m = [torch.tensor(v, dtype=torch.float32)
+         for v in np.linalg.inv(np.asarray(H, np.float64)).astype(np.float32).reshape(-1)]
+    n_block = (w // SIMD_FLOATS) * SIMD_FLOATS
+    x = torch.arange(w, dtype=torch.float32)[None, :]
+    y = torch.arange(h, dtype=torch.float32)[:, None]
+
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+
+    def coord(m0, m1, m2):
+        block = fma(x[:, :n_block], m0, y * m1 + m2)
+        tail = fma(x[:, n_block:], m0, y * m1) + m2
+        return torch.cat([block, tail], 1)
+
+    den = coord(m[6], m[7], m[8])
+    map_x = (coord(m[0], m[1], m[2]) / den).numpy()
+    map_y = (coord(m[3], m[4], m[5]) / den).numpy()
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        return remap_linear(img, map_x, map_y)
+    return np.stack([remap_linear(img[..., i], map_x, map_y) for i in range(img.shape[2])], -1)
+
+
 __all__ = ["gaussian_kernel", "gaussian_blur", "filter2d", "sep_filter", "resize_cubic",
-           "fill_poly", "fill_ellipse", "ellipse_poly", "clip_line", "warp_perspective",
-           "remap_linear"]
+           "fill_poly", "fill_ellipse", "fill_circle", "ellipse_poly", "clip_line",
+           "warp_perspective", "warp_perspective_cv", "remap_linear"]

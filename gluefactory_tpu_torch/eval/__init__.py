@@ -1,15 +1,16 @@
 """Benchmarks of the port (counterpart of gluefactory_tpu/eval): the
 registry and the hook the trainer calls at the end of an epoch. HPatches
-(`eval.hpatches`), the synthetic homography benchmark (`eval.synthetic`)
-and the synthetic relative-pose benchmark (`eval.synthetic_pose`) are
-ported; the others wait (ROADMAP Queue 1 item 6)."""
+(`eval.hpatches`), the synthetic homography benchmark (`eval.synthetic`),
+the synthetic relative-pose benchmark (`eval.synthetic_pose`) and the
+multispectral benchmark (`eval.MP`) are ported; the others wait (ROADMAP
+Queue 1 item 6)."""
 
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Any
 
-NOT_PORTED = ("megadepth1500", "eth3d", "MP")
+NOT_PORTED = ("megadepth1500", "eth3d")
 
 
 def get_benchmark(name: str):
@@ -25,6 +26,10 @@ def get_benchmark(name: str):
         from .synthetic_pose import SyntheticPosePipeline
 
         return SyntheticPosePipeline
+    if name == "MP":
+        from .MP import MPPipeline
+
+        return MPPipeline
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"the {name} benchmark is not ported yet (ROADMAP Queue 1 item 6)")

@@ -20,6 +20,7 @@ from torch import nn
 
 from ...ops.block0_conv import block0_fused
 from ..base_model import BaseModel
+from ..utils.layers import top_k_stable
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, None: None}
 
@@ -44,9 +45,15 @@ def simple_nms(scores: torch.Tensor, radius: int, iterations: int = 2) -> torch.
 def sample_descriptors(keypoints: torch.Tensor, descriptors: torch.Tensor, s: int = 8):
     """Bilinearly sample a dense (B, Hc, Wc, D) map at (B, K, 2) xy pixel
     coordinates (align_corners=False, cell stride s); L2-normalise in fp32."""
-    b, hc, wc, d = descriptors.shape
     x = (keypoints[..., 0] + 0.5) / s - 0.5
     y = (keypoints[..., 1] + 0.5) / s - 0.5
+    return bilinear_sample(descriptors, x, y)
+
+
+def bilinear_sample(descriptors: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """Bilinear samples of a (B, Hc, Wc, D) map at (B, K) cell coordinates,
+    the taps clamped to the map; L2-normalised in fp32."""
+    b, hc, wc, d = descriptors.shape
     x0, y0 = torch.floor(x), torch.floor(y)
     wx, wy = x - x0, y - y0
     x0i = x0.long().clamp(0, wc - 1)
@@ -192,10 +199,8 @@ class SuperPoint(BaseModel):
             border[pad:-pad, pad:-pad] = True
             scores = torch.where(border, scores, torch.full_like(scores, -1.0))
 
-        # exact top-k; a stable sort resolves ties to the lower flat index
-        k = conf.max_num_keypoints
-        topv, topi = torch.sort(scores.reshape(b, h * w), dim=1, descending=True, stable=True)
-        topv, topi = topv[:, :k].float(), topi[:, :k]
+        topv, topi = top_k_stable(scores.reshape(b, h * w), conf.max_num_keypoints)
+        topv = topv.float()
         keypoints = torch.stack([(topi % w).float(), (topi // w).float()], dim=-1)
         mask = topv > conf.detection_threshold
         kp_scores = torch.where(mask, topv, torch.zeros_like(topv))

@@ -1,0 +1,71 @@
+"""Torch layers with flax's semantics, shared by the models carried over from
+flax trees (MultiPoint, XPoint's backbones, SuperPoint-MagicLeap): `Conv`
+pads "SAME" as flax does (asymmetrically, (0, 1) for a 3 x 3 kernel at
+stride 2 on an even side), `BatchNorm` is flax's (eps 1e-3, momentum 0.99),
+and `top_k_stable` breaks ties as `jax.lax.top_k` does. Parameter names are
+those `weights.params_from_jax` gives a flax leaf: kernel -> weight, scale
+-> weight, mean / var -> running_mean / running_var."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def same_padding(size: int, kernel: int, stride: int) -> tuple:
+    """(low, high) padding of one axis under flax's "SAME": (0, 1) for a
+    3 x 3 kernel at stride 2 on an even side."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Conv2d):
+    """A flax `nn.Conv` on NCHW tensors: "SAME" (flax's asymmetric padding)
+    or "VALID"."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, padding: str = "SAME",
+                 bias: bool = True):
+        super().__init__(cin, cout, kernel, stride=stride, bias=bias)
+        self.same = padding == "SAME"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.same:
+            return super().forward(x)
+        k, s = self.kernel_size[0], self.stride[0]
+        (top, bottom), (left, right) = (same_padding(n, k, s) for n in x.shape[-2:])
+        if top == bottom and left == right:
+            return F.conv2d(x, self.weight, self.bias, s, (top, left))
+        return F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight, self.bias, s)
+
+
+def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.Module):
+    """flax's `nn.BatchNorm` (eps 1e-3, momentum 0.99) on NCHW tensors:
+    weight / bias are flax's scale / bias, the running statistics its
+    `batch_stats` mean / var."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor, is_training: bool) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            training=is_training, momentum=0.01, eps=1e-3)
+
+
+def top_k_stable(scores: torch.Tensor, k: int):
+    """(values, flat indices) of the k largest of each row, ties to the lower
+    index (`jax.lax.top_k`'s order)."""
+    values, index = torch.sort(scores, dim=1, descending=True, stable=True)
+    return values[:, :k], index[:, :k]
+
+
+__all__ = ["same_padding", "Conv", "conv_nhwc", "BatchNorm", "top_k_stable"]

@@ -11,6 +11,16 @@ a flat state dict of the port:
   - LightGlue leaves keep their names and their stacked layout: dense
     weights stay (L, in, out), which is the row-major (K, N) operand the
     CUDA kernels read, so one layer is a contiguous slice;
+  - the nested trees of the models whose torch modules carry the flax
+    names (SuperPoint-MagicLeap `conv1a/kernel`, MultiPoint
+    `encoder_optical/Conv_0/kernel`, XPoint's backbones down to
+    `stage0_block0/attn/cpb_fc1/kernel`): the path joined by dots, a conv
+    `kernel` (HWIO) -> `weight` (OIHW), a Dense `kernel` (in, out) ->
+    `nn.Linear`'s `weight` (out, in), a BatchNorm's or LayerNorm's `scale`
+    -> `weight`, `batch_stats` `mean` / `var` -> `running_mean` /
+    `running_var`; other parameters keep name and layout (SwinV2's raw
+    `qkv` (in, 3 dim), `q_bias`, `v_bias`, `logit_scale`, SwinIR's
+    `relative_position_bias_table`);
   - a component prefix (`extractor/`, `matcher/`) becomes `extractor.` /
     `matcher.`, the key layout of the two-view pipeline's state dict;
   - f16 leaves are upcast to f32.
@@ -41,6 +51,8 @@ from .models.base_model import resolve_device
 HERMETIC = Path(__file__).resolve().parent.parent / "weights" / "hermetic" / "sp_open_lg.npz"
 
 _VGG = re.compile(r"VGGBlock_(\d+)/(Conv_0|BatchNorm_0)/(\w+)$")
+_FLAX_LEAVES = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
+                "var": "running_var"}
 _VGG_NAMES = {
     ("Conv_0", "kernel"): "conv.weight",
     ("Conv_0", "bias"): "conv.bias",
@@ -74,6 +86,8 @@ def port_key(path: str) -> str:
     m = _VGG.match(rest)
     if m:
         return f"{prefix}blocks.{m.group(1)}.{_VGG_NAMES[(m.group(2), m.group(3))]}"
+    if len(parts) > 1:  # a nested module tree
+        return prefix + ".".join(parts[:-1] + [_FLAX_LEAVES.get(parts[-1], parts[-1])])
     return prefix + rest
 
 
@@ -84,8 +98,9 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict:
         arr = np.asarray(leaf)
         if arr.dtype == np.float16:
             arr = arr.astype(np.float32)
-        if path.endswith("Conv_0/kernel"):
-            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        if path.endswith("/kernel"):
+            # a conv's HWIO -> OIHW, a Dense's (in, out) -> (out, in)
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         out[port_key(path)] = torch.from_numpy(np.array(arr, order="C"))
     return out
 
@@ -113,6 +128,14 @@ def params_to_jax(state_dict: Mapping[str, Any]) -> dict:
             if leaf == "kernel":
                 arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
             parts += [f"VGGBlock_{m.group(1)}", module, leaf]
+        elif "." in key:  # a nested module tree
+            *modules, leaf = key.split(".")
+            if leaf in ("running_mean", "running_var"):
+                collection, leaf = "batch_stats", leaf[len("running_"):]
+            elif leaf == "weight":
+                leaf = "kernel" if arr.ndim > 1 else "scale"
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            parts += modules + [leaf]
         else:
             parts.append(key)
         node = tree.setdefault(collection, {})

@@ -23,6 +23,7 @@ from scipy.ndimage import gaussian_filter
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu.models.matchers.lightglue_pretrained import load_npz_params
 from gluefactory_tpu_torch.estimators.homography.torch_ransac import TorchRansacHomography
+from gluefactory_tpu_torch.eval.MP import MPPipeline
 from gluefactory_tpu_torch.eval.hpatches import HPatchesPipeline
 from gluefactory_tpu_torch.eval.synthetic import SyntheticHomographyPipeline
 from gluefactory_tpu_torch.models import get_model
@@ -83,6 +84,9 @@ def test_pipeline_matches_jax_with_hermetic_weights():
     lambda: TorchRansacHomography(),
     lambda: SyntheticHomographyPipeline(),
     lambda: Trainer(load_conf("superpoint-open+lightglue_homography"), "e"),
+    lambda: MPPipeline(),
+    lambda: get_model("superpoint_magicleap")(),
+    lambda: get_model("gluefactory_tpu_torch.multipoint.models.multipoint")(),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -106,7 +110,12 @@ def test_port_imports_no_jax():
     assert {"superglue.py", "block0_conv.py", "fused_attention.py", "lightglue.py", "hpatches.py",
             "ransac.py", "torch_ransac.py", "eval_pipeline.py", "nearest_neighbor_matcher.py",
             "trainer.py", "__main__.py", "homographies.py", "augmentations.py", "image_ops.py",
-            "experiments.py", "summary.py", "synthetic.py", "base_dataset.py"} <= names
+            "experiments.py", "summary.py", "synthetic.py", "base_dataset.py", "MP.py",
+            "mp_image_pairs.py", "superpoint_magicleap.py", "layers.py"} <= names
+    multipoint = {p.relative_to(ROOT / "gluefactory_tpu_torch" / "multipoint").as_posix()
+                  for p in files if "multipoint" in p.parts}
+    assert {"datasets/image_pair_dataset.py", "models/multipoint.py", "models/xpoint.py",
+            "models/backbones.py", "utils/evaluation.py"} <= multipoint
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
