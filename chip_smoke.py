@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SuperPoint-open + LightGlue (full depth,
-adaptive, training), SuperGlue, the benchmarks and the multispectral slice
-on one GPU.
+adaptive, training), SuperGlue, the benchmarks, the multispectral slice and
+the hermetic loop (the detector's pretraining -> LightGlue -> HPatches) on
+one GPU.
 
     python3 chip_smoke.py [--train-batch PAIRS]
 
@@ -102,7 +103,31 @@ on one GPU.
      export pairs/s and eval seconds; MultiPoint's thermal view through the
      thermal encoder inside the stacked extraction of both views; (c) the
      forwards of SuperPoint-open, MultiPoint, XPoint and
-     SuperPoint-MagicLeap at b8, 256 x 320.
+     SuperPoint-MagicLeap at b8, 256 x 320;
+ 12. the hermetic loop: (a) stage 1, configs/superpoint-open_synthetic_pretrain.json
+     at its width (8 SyntheticShapes pairs of 240 x 320 rendered at 480 x
+     640 a step, SuperPoint-open 64-64-128-128-256 with 256-D descriptors,
+     fp32, batch-mode BatchNorm) through the trainer for 2 epochs of 8
+     steps, a validation of 16 pairs and a checkpoint at each epoch's end:
+     the first step's losses within 1e-4 of the port's CPU run on the same
+     batch and weights, the heads' last BatchNorm-scale gradients within
+     1e-3 max|g| of it, the trunk's first and the detector's 3 x 3 conv
+     gradients within 0.05 max|g| of float64 on the card (fp32 on either
+     device is 0.3-2.5% off there), the running statistics within 1e-5,
+     finite losses; then a non-finite batch and a validation, each leaving
+     the parameters and running statistics bit for bit; ms a step alone and
+     fed by the loader, the loader's pairs/s alone, peak memory; (b) stage 2,
+     configs/superpoint-open-trained+lightglue_homography.json at its width
+     (8 pairs of 480 x 368, 384 keypoints, LightGlue 9 x 256 fp32
+     checkpointed) with stage 1's best checkpoint grafted into its extractor
+     (bit for bit), cut to 3 steps and a validation: the first step within
+     1e-4 of the plain path and two gradients within 1e-3 max|g|, 18 K5 + 18
+     K6b + 27 K7b a step, ms a step, peak memory; (c) stage 3, the HPatches
+     benchmark on phase 8's 50-pair tree with stage 2's experiment in fp32:
+     K1 = K2 = 9 and K4 = 1 a pair, keypoints on every pair, the summaries
+     finite but the median errors (infinite while the three-step LightGlue
+     matches nothing), export pairs/s, eval seconds, H-AUC without a bar.
+     The kernel rows add K5, K6b and K7b at stage 2's shape, (16, 384, 256).
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -153,6 +178,27 @@ def timed(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Milliseconds per call of the kernels' own device time (their sum, by
+    torch.profiler), without the host's gaps between launches: for a shape
+    at which one call's Python and launch overhead outlasts its kernels."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total <= 0:
+        fail("device_ms: the profiler recorded no kernel")
+    return total / 1e3 / iters
 
 
 def bound(flops: float, nbytes: float, peak: float):
@@ -452,9 +498,10 @@ def attention_bound(pairs, n_products, tensors_bytes):
     return bound(2.0 * n_products * D * pairs, tensors_bytes, PEAK_FP32_PRODUCT)
 
 
-def check_self_attention(seed, b=None, n=None):
+def check_self_attention(seed, b=None, n=None, timer=timed):
     """K5 and the self form of K7b at (2b, n, 256) (default: the training
-    shape, (64, 512, 256)): fp32 (timed) and bf16."""
+    shape, (64, 512, 256)): fp32 (timed by `timer`, the plain version by
+    `timed`) and bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -483,19 +530,19 @@ def check_self_attention(seed, b=None, n=None):
             f"gradients {err_b:.3g} (atol %g + rtol %g)" % TOL[name])
         if dtype != torch.float32:
             continue
-        ms_f = timed(lambda: fa.fused_attention_packed(q, k, v, mask, mask, H), 10)
+        ms_f = timer(lambda: fa.fused_attention_packed(q, k, v, mask, mask, H), 10)
         # the backward alone: autograd calls the backward kernels on the saved forward
-        ms_b = timed(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 10)
+        ms_b = timer(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 10)
         plain_f = timed(lambda: plain.self_attention_packed(q, k, v, mask, H), 3, warmup=1)
         plain_b = timed(lambda: plain.attention_backward(q, k, v, mask, mask, do, H, DH**-0.5),
                         3, warmup=1)
         lq, lk, lv = (heads(t).requires_grad_() for t in (q, k, v))
         amask = mask[:, None, None, :]
-        lib_f = timed(lambda: F.scaled_dot_product_attention(lq.detach(), lk.detach(),
+        lib_f = timer(lambda: F.scaled_dot_product_attention(lq.detach(), lk.detach(),
                                                              lv.detach(), attn_mask=amask), 10)
         lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask)
         ldo = heads(do)
-        lib_b = timed(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True), 10)
+        lib_b = timer(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True), 10)
         nv = mask.sum(1).double()
         pairs = float((nv * nv).sum())
         act = s * n * D * 4
@@ -509,11 +556,11 @@ def check_self_attention(seed, b=None, n=None):
     return rows
 
 
-def check_cross_attention(form, seed, b=None, n=None):
+def check_cross_attention(form, seed, b=None, n=None, timer=timed):
     """K6b (stacked, N = 512, or n) or K6a (two arrays, 512 x 384) with the
-    gradients of the shared projection, fp32 (timed) and bf16; for the
-    stacked form also the cross form of K7b alone. `b` pairs (default: the
-    training batch)."""
+    gradients of the shared projection, fp32 (timed by `timer`, the plain
+    version by `timed`) and bf16; for the stacked form also the cross form
+    of K7b alone. `b` pairs (default: the training batch)."""
     import torch
     import torch.nn.functional as F
 
@@ -551,7 +598,7 @@ def check_cross_attention(form, seed, b=None, n=None):
             f"{err_b:.3g} (atol %g + rtol %g)" % TOL[name])
         if dtype != torch.float32:
             continue
-        ms_f = timed(lambda: kern(*args, *mk, H), 10)
+        ms_f = timer(lambda: kern(*args, *mk, H), 10)
         plain_f = timed(lambda: ref_fn(*args, *mk, H), 3, warmup=1)
         # yardstick: the two directions as scaled_dot_product_attention calls
         # (one call over the stacked sets when both have the same length)
@@ -560,9 +607,9 @@ def check_cross_attention(form, seed, b=None, n=None):
         if form == "stacked":
             hq, hk, hv = torch.cat([h0, h1]), torch.cat([h1, h0]), torch.cat([hv1, hv0])
             am = torch.cat([a1, a0])
-            lib_f = timed(lambda: F.scaled_dot_product_attention(hq, hk, hv, attn_mask=am), 10)
+            lib_f = timer(lambda: F.scaled_dot_product_attention(hq, hk, hv, attn_mask=am), 10)
         else:
-            lib_f = timed(lambda: (F.scaled_dot_product_attention(h0, h1, hv1, attn_mask=a1),
+            lib_f = timer(lambda: (F.scaled_dot_product_attention(h0, h1, hv1, attn_mask=a1),
                                    F.scaled_dot_product_attention(h1, h0, hv0, attn_mask=a0)), 10)
         pairs = float((mask0.sum(1).double() * mask1.sum(1).double()).sum())
         act0, act1 = b * m * D * 4, b * n * D * 4
@@ -580,13 +627,13 @@ def check_cross_attention(form, seed, b=None, n=None):
         got = torch.autograd.grad(out01, one, g0, retain_graph=True)
         err = max(compare(g, r, name, f"K7b cross form d{w}") for g, r, w in zip(
             got, autograd_reference(direction, (qk0, qk1, v1), (g0,)), "qkv"))
-        ms_b = timed(lambda: torch.autograd.grad(out01, one, g0, retain_graph=True), 10)
+        ms_b = timer(lambda: torch.autograd.grad(out01, one, g0, retain_graph=True), 10)
         plain_b = timed(lambda: plain.attention_backward(qk0, qk1, v1, mask0, mask1, g0, H,
                                                          DH**-0.5), 3, warmup=1)
         lq, lk, lv = (t.requires_grad_() for t in (h0, h1, hv1))
         lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=a1)
         ldo = heads(g0)
-        lib_b = timed(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True), 10)
+        lib_b = timer(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True), 10)
         bb, byb = attention_bound(pairs, 5, 8 * act0 + b * (m + n) + b * H * m * 4)
         rows["K7b cross"] = dict(max_abs_err=err, ms=ms_b, plain_ms=plain_b, library_ms=lib_b,
                                  bound_ms=bb, bound_by=byb, tol=tol)
@@ -1373,6 +1420,10 @@ HP_SCENES = ([(f"i_synth{i}", "i", 480, 640) for i in range(4)]
 HP_EXTRACTOR = {"name": "superpoint_open", "max_num_keypoints": 512,
                 "detection_threshold": 0.005, "dtype": None}
 HP_LIGHTGLUE = {"name": "lightglue", "filter_threshold": 0.1, "collect_layers": False}
+HP_SUMMARIES = ("mprec@1px", "mprec@3px", "mnum_matches", "mnum_keypoints", "mH_error_dlt",
+                "H_error_ransac@1px", "H_error_ransac@3px", "H_error_ransac@5px",
+                "H_error_ransac_mAA", "mH_error_ransac", "mransac_inl", "mransac_inl%",
+                "H_error_dlt@1px", "H_error_dlt@3px", "H_error_dlt@5px")
 
 
 def write_ppm(path, img):
@@ -1419,10 +1470,11 @@ def hpatches_counters():
     return b0.block0_fused, lb.fused_self_block, lb.fused_cross_block, la.fused_log_assignment
 
 
-def run_hpatches(root, out, name, matcher, extractor=None):
+def run_hpatches(root, out, name, matcher, extractor=None, checkpoint=None, finite=None):
     """HPatchesPipeline(conf).run on the card with the K8, K1, K2, K4 counts
-    set to 0 just before and read just after; returns (summaries, pipeline,
-    counts)."""
+    set to 0 just before and read just after, with the committed weights or
+    `checkpoint` (an experiment); the summaries of `finite` (default: all)
+    must be finite. Returns (summaries, pipeline, counts)."""
     import torch
 
     from gluefactory_tpu_torch.eval.hpatches import HPatchesPipeline
@@ -1430,7 +1482,7 @@ def run_hpatches(root, out, name, matcher, extractor=None):
 
     conf = {"data": {"data_dir": str(root)}, "eval": {"ransac_th": -1},
             "model": {"extractor": {**HP_EXTRACTOR, **(extractor or {})}, "matcher": matcher,
-                      "checkpoint": str(HERMETIC)}}
+                      "checkpoint": checkpoint or str(HERMETIC)}}
     pipe = HPatchesPipeline(conf, device="cuda")
     torch.cuda.synchronize()
     for fn in hpatches_counters():
@@ -1444,7 +1496,7 @@ def run_hpatches(root, out, name, matcher, extractor=None):
         f"{pipe.timings['eval_s']:.2f} s; launches K8 {counts[0]}, K1 {counts[1]}, "
         f"K2 {counts[2]}, K4 {counts[3]}")
     log(f"[hpatches {name}] summaries " + json.dumps(summaries))
-    bad = [k for k, v in summaries.items() if not math.isfinite(v)]
+    bad = [k for k in (finite or summaries) if not math.isfinite(summaries[k])]
     if bad:
         fail(f"hpatches {name}: non-finite summaries {bad}")
     return summaries, pipe, counts
@@ -2165,6 +2217,72 @@ def mp_train_conf(init):
     })
 
 
+def timed_trainer(trainer):
+    """Wrap a trainer's step and validation: each step's (start, end,
+    launches, losses) and each validation's (launches, results) go to the
+    returned lists; `restore()` unwraps."""
+    import torch
+
+    steps, evals = [], []
+    step_fn, eval_fn = trainer.train_step, trainer.do_evaluation
+
+    def step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset_entry_counts()
+        state, losses = step_fn(state, batch)
+        torch.cuda.synchronize()
+        steps.append((t0, time.perf_counter(), entry_counts(),
+                      {k: float(v) for k, v in losses.items()}))
+        return state, losses
+
+    def evaluate(epoch, it):
+        reset_entry_counts()
+        results = eval_fn(epoch, it)
+        torch.cuda.synchronize()
+        evals.append((entry_counts(), results))
+        return results
+
+    def restore():
+        trainer.train_step, trainer.do_evaluation = step_fn, eval_fn
+
+    trainer.train_step, trainer.do_evaluation = step, evaluate
+    return steps, evals, restore
+
+
+def hold_first_step(trainer, build_plain, first, label):
+    """A LightGlue training configuration's first step on `first`: its total
+    and two gradients against the plain path's (`build_plain()`, a trainer
+    with `matcher.flash: False`) within 1e-4 and 1e-3 max|g| + 1e-7.
+    Returns the account to log."""
+    import torch
+
+    named = ("matcher.self_Wqkv_w", "matcher.assign_proj_w")
+
+    def loss_and_grads(tr):
+        params = dict(tr.model.named_parameters())
+        losses, _ = tr.model.loss(tr.model(first), first)
+        total = losses["total"].mean()
+        return float(total.detach()), torch.autograd.grad(total, [params[k] for k in named])
+
+    total, grads = loss_and_grads(trainer)
+    plain = build_plain()
+    ref_total, ref_grads = loss_and_grads(plain)
+    del plain
+    torch.cuda.empty_cache()
+    if not abs(total - ref_total) <= 1e-4 * abs(ref_total):
+        fail(f"{label}: first total {total} against the plain path's {ref_total} (rtol 1e-4)")
+    worst = []
+    for key, g, r in zip(named, grads, ref_grads):
+        diff, top = float((g - r).abs().max()), float(r.abs().max())
+        if not (top > 0 and diff <= 1e-3 * top + 1e-7):
+            fail(f"{label}: gradient of {key} {diff:.3g} from the plain path's "
+                 f"(max |g| {top:.3g})")
+        worst.append(f"{key} {diff:.3g} (max |g| {top:.3g})")
+    return (f"first total {total:.6f}, plain path {ref_total:.6f} (rtol 1e-4); gradients "
+            + "; ".join(worst) + " (bar 1e-3 max|g| + 1e-7)")
+
+
 def check_mp_training(work):
     """Phase 11a: the first step against the plain path, then the trainer's
     epoch with launches counted a step, a validation and the benchmark;
@@ -2205,52 +2323,11 @@ def check_mp_training(work):
     optical = (first["view0"]["is_optical"], first["view1"]["is_optical"])
     if not (bool(optical[0].all()) and not bool(optical[1].any())):
         fail("MP training: view0 is not optical or view1 not thermal")
-    named = ("matcher.self_Wqkv_w", "matcher.assign_proj_w")
+    held = hold_first_step(trainer, lambda: build(False, "mp_plain"), first, "MP training")
+    log(f"[mp train] {TRAIN_B} pairs x {econf.max_num_keypoints} keypoints at 256 x 320: "
+        + held)
 
-    def loss_and_grads(tr):
-        params = dict(tr.model.named_parameters())
-        losses, _ = tr.model.loss(tr.model(first), first)
-        total = losses["total"].mean()
-        return float(total.detach()), torch.autograd.grad(total, [params[k] for k in named])
-
-    total, grads = loss_and_grads(trainer)
-    plain = build(False, "mp_plain")
-    ref_total, ref_grads = loss_and_grads(plain)
-    del plain
-    torch.cuda.empty_cache()
-    if not abs(total - ref_total) <= 1e-4 * abs(ref_total):
-        fail(f"MP training: first total {total} against the plain path's {ref_total} (rtol 1e-4)")
-    worst = []
-    for key, g, r in zip(named, grads, ref_grads):
-        diff, top = float((g - r).abs().max()), float(r.abs().max())
-        if not (top > 0 and diff <= 1e-3 * top + 1e-7):
-            fail(f"MP training: gradient of {key} {diff:.3g} from the plain path's "
-                 f"(max |g| {top:.3g})")
-        worst.append(f"{key} {diff:.3g} (max |g| {top:.3g})")
-    log(f"[mp train] {TRAIN_B} pairs x {econf.max_num_keypoints} keypoints at 256 x 320: first "
-        f"total {total:.6f}, plain path {ref_total:.6f} (rtol 1e-4); gradients "
-        + "; ".join(worst) + " (bar 1e-3 max|g| + 1e-7)")
-
-    steps, evals, benches = [], [], []
-    step_fn, eval_fn = trainer.train_step, trainer.do_evaluation
-
-    def step(state, batch):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        reset_entry_counts()
-        state, losses = step_fn(state, batch)
-        torch.cuda.synchronize()
-        steps.append((t0, time.perf_counter(), entry_counts(),
-                      {k: float(v) for k, v in losses.items()}))
-        return state, losses
-
-    def evaluate(epoch, it):
-        reset_entry_counts()
-        results = eval_fn(epoch, it)
-        torch.cuda.synchronize()
-        evals.append((entry_counts(), results))
-        return results
-
+    benches = []
     saved = gf_eval.run_benchmark
 
     def counted_benchmark(*a, **k):
@@ -2262,7 +2339,7 @@ def check_mp_training(work):
         benches.append((entry_counts(), summaries, time.perf_counter() - t0))
         return summaries, figures
 
-    trainer.train_step, trainer.do_evaluation = step, evaluate
+    steps, evals, restore = timed_trainer(trainer)
     gf_eval.run_benchmark = counted_benchmark
     try:
         torch.cuda.synchronize()
@@ -2273,7 +2350,7 @@ def check_mp_training(work):
         peak = torch.cuda.max_memory_allocated() / 2**20
     finally:
         gf_eval.run_benchmark = saved
-        trainer.train_step, trainer.do_evaluation = step_fn, eval_fn
+        restore()
     per_step = {"K5": 18, "K6b": 18, "K6a": 0, "K7b self": 9, "K7b cross": 18,
                 "K1": 0, "K2": 0, "K4": 0}
     if len(steps) != MP_STEPS:
@@ -2536,6 +2613,322 @@ def run_mp_slice():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ----------------------------------------------------------------- phase 12
+S1_CONF = "superpoint-open_synthetic_pretrain"  # stage 1: the detector on SyntheticShapes
+S2_CONF = "superpoint-open-trained+lightglue_homography"  # stage 2: LightGlue on top
+S1_EPOCHS, S1_STEPS, S1_VAL = 2, 8, 16  # epochs of steps of the configuration's 8 pairs
+# the heads' last BatchNorm scales, held card against CPU at 1e-3 max|g|; the trunk's first
+# conv and the detector's 3 x 3 conv, whose fp32 gradients are 0.3-2.5% of max|g| off
+# float64 on either device (sums over 1.2M positions through batch-mode BatchNorms), held
+# against float64 on the card; every one's distance to float64 is printed
+S1_GRADS = ("blocks.9.bn_scale", "blocks.11.bn_scale")
+S1_TRUNK = ("blocks.0.conv.weight", "blocks.10.conv.weight")
+S2_B, S2_N, S2_STEPS = 8, 384, 3  # stage 2's pairs a step, keypoints, steps run here
+S2_EXTRACTOR = {"name": "superpoint_open", "max_num_keypoints": S2_N,
+                "detection_threshold": 0.005, "dtype": None}
+
+
+def stage1_conf():
+    """Stage 1 at its width (8 pairs of 240 x 320 rendered at 480 x 640, the
+    full SuperPoint-open in fp32 with batch-mode BatchNorm), cut to
+    S1_EPOCHS epochs of S1_STEPS steps, a validation of S1_VAL pairs and a
+    checkpoint at each epoch's end."""
+    from gluefactory_tpu_torch.utils.config import load_conf, merge
+
+    conf = load_conf(S1_CONF)
+    b = conf["data"]["train_batch_size"]
+    return merge(conf, {"data": {"length": S1_STEPS * b, "val_length": S1_VAL},
+                        "train": {"epochs": S1_EPOCHS, "log_every_iter": 1}})
+
+
+def stage2_conf(flash=True):
+    """Stage 2 at its width (8 pairs of 480 x 368 patches, 384 keypoints,
+    LightGlue 9 x 256 fp32 checkpointed, the extractor grafted from stage 1
+    by `train.load_experiment`), cut to S2_STEPS steps, one validation of 8
+    pairs and a pool of 64 synthetic textures."""
+    from gluefactory_tpu_torch.utils.config import load_conf, merge
+
+    return merge(load_conf(S2_CONF), {
+        "data": {"train_size": S2_STEPS * S2_B, "val_size": S2_B,
+                 "synthetic": {"pool": 64}},
+        "model": {"matcher": {"flash": flash}},
+        "train": {"epochs": 1, "log_every_iter": 1}})
+
+
+def check_stage1(work):
+    """Phase 12a: stage 1's first step on the card against the port's CPU
+    run on the same batch and weights, the epochs through `Trainer.train()`,
+    then the non-finite veto and a validation, each leaving the parameters
+    and running statistics bit for bit. Returns (ms a step alone, with the
+    loader, loader pairs/s, peak MiB)."""
+    import statistics
+
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.train import trainer as tmod
+    from gluefactory_tpu_torch.utils import experiments as exps
+    from gluefactory_tpu_torch.utils.tensor import batch_to_device
+
+    conf = stage1_conf()
+    trainer = tmod.Trainer(conf, "sp_open_synth", exps.experiment_dir("sp_open_synth"),
+                           device="cuda")
+    trainer.build()
+    model = trainer.model
+    mc = model.conf
+    if (list(mc.channels), mc.descriptor_dim, mc.dtype, mc.is_training) != (
+            [64, 64, 128, 128, 256], 256, None, True):
+        fail(f"stage 1: the extractor is not SuperPoint-open at its width in fp32 training ({mc})")
+    first = next(iter(trainer.dataset.get_data_loader("train", epoch=0)))
+    if first["image"].shape != first["image2"].shape or first["image"].shape != (8, 240, 320, 1):
+        fail(f"stage 1: a batch of {first['image'].shape} / {first['image2'].shape} images")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    stats = [k for k in init if k.endswith(("bn_mean", "bn_var"))]
+
+    def first_step(m, batch):
+        params = dict(m.named_parameters())
+        losses, _ = m.loss(m(batch), batch)
+        grads = torch.autograd.grad(losses["total"].mean(),
+                                    [params[k] for k in S1_GRADS + S1_TRUNK])
+        state = m.state_dict()
+        return ({k: float(v.detach().double().mean()) for k, v in losses.items()},
+                [g.double().cpu() for g in grads], {k: state[k].cpu() for k in stats})
+
+    def copy_on(device, dtype=torch.float32):
+        m = get_model("superpoint_open")(conf["model"], device=device)
+        m.load_state_dict({k: v.to(device) for k, v in init.items()})
+        return m.to(dtype)
+
+    t0 = time.perf_counter()
+    card = first_step(model, batch_to_device(first, "cuda"))
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = first_step(copy_on("cpu"), batch_to_device(first, "cpu"))
+    t_host = time.perf_counter() - t0
+    exact = first_step(copy_on("cuda", torch.float64), {
+        k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+        for k, v in batch_to_device(first, "cuda").items()})
+    model.load_state_dict(init)  # the comparison's forward moved the running statistics
+    bad = [k for k in ("detector_loss", "detector_loss2", "descriptor_loss", "total")
+           if not (math.isfinite(card[0][k]) and abs(card[0][k] - host[0][k])
+                   <= 1e-4 * abs(host[0][k]))]
+    if bad:
+        fail(f"stage 1: first-step losses {bad} off the CPU run's (rtol 1e-4): card {card[0]}, "
+             f"CPU {host[0]}")
+    worst = []
+    for key, g, r, x in zip(S1_GRADS, card[1], host[1], exact[1]):
+        diff, top = float((g - r).abs().max()), float(r.abs().max())
+        if not (top > 0 and diff <= 1e-3 * top):
+            fail(f"stage 1: gradient of {key} {diff:.3g} from the CPU run's (max |g| {top:.3g})")
+        worst.append(f"{key} {diff:.3g} (max |g| {top:.3g}; off float64: card "
+                     f"{float((g - x).abs().max()) / top:.3g}, CPU "
+                     f"{float((r - x).abs().max()) / top:.3g} of max|g|)")
+    n = len(S1_GRADS)
+    for key, g, h, r in zip(S1_TRUNK, card[1][n:], host[1][n:], exact[1][n:]):
+        top = float(r.abs().max())
+        e_card, e_host = float((g - r).abs().max()) / top, float((h - r).abs().max()) / top
+        if not e_card <= 0.05:
+            fail(f"stage 1: gradient of {key} {e_card:.3g} max|g| off float64 on the card")
+        worst.append(f"{key} off float64: card {e_card:.3g}, CPU {e_host:.3g} of max|g| "
+                     f"{top:.3g} (bar 0.05 on the card)")
+    stat_err = max(float((card[2][k] - host[2][k]).abs().max()) for k in stats)
+    if not stat_err <= 1e-5:
+        fail(f"stage 1: running statistics after the step {stat_err:.3g} off the CPU run's")
+    log(f"[stage1] first step on 8 pairs at 240 x 320 against the CPU run: "
+        + ", ".join(f"{k} {card[0][k]:.6f} / {host[0][k]:.6f}"
+                    for k in ("detector_loss", "detector_loss2", "descriptor_loss", "total"))
+        + f" (rtol 1e-4; float64 total {exact[0]['total']:.6f}); gradients "
+        + "; ".join(worst) + " (bar 1e-3 max|g| against the CPU); running "
+        f"statistics within {stat_err:.3g} (bar 1e-5); card {t_card:.2f} s, CPU {t_host:.2f} s "
+        "(first call, compile and allocation included)")
+
+    steps, evals, restore = timed_trainer(trainer)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        trainer.train()
+        t_run = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    finally:
+        restore()
+    if len(steps) != S1_EPOCHS * S1_STEPS or len(evals) != S1_EPOCHS:
+        fail(f"stage 1: {len(steps)} steps and {len(evals)} validations, expected "
+             f"{S1_EPOCHS * S1_STEPS} and {S1_EPOCHS}")
+    for i, (_, _, counts, losses) in enumerate(steps):
+        if not all(math.isfinite(v) for v in losses.values()) or losses["skipped_nonfinite"]:
+            fail(f"stage 1, step {i}: {losses}")
+        if any(counts.values()):
+            fail(f"stage 1, step {i}: a LightGlue kernel launched {counts}")
+    if not all(math.isfinite(r["loss/total"]) for _, r in evals):
+        fail(f"stage 1: validation losses {[r['loss/total'] for _, r in evals]}")
+
+    # the veto and a validation leave the parameters and running statistics
+    trainer.writer = None  # closed at the end of train()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    nan_batch = batch_to_device(first, "cuda")
+    nan_batch["image"][0, 10, 10, 0] = float("nan")
+    count = trainer.state.optimizer.count
+    trainer.state, out = trainer.train_step(trainer.state, nan_batch)
+    moved = [k for k, v in model.state_dict().items() if not torch.equal(v, before[k])]
+    if float(out["skipped_nonfinite"]) != 1.0 or moved or trainer.state.optimizer.count != count:
+        fail(f"stage 1 veto: skipped {float(out['skipped_nonfinite'])}, moved {moved[:4]}")
+    results = trainer.do_evaluation(S1_EPOCHS, trainer.state.step)
+    moved = [k for k, v in model.state_dict().items() if not torch.equal(v, before[k])]
+    if moved or not math.isfinite(results["loss/total"]):
+        fail(f"stage 1 validation: moved {moved[:4]}, loss {results['loss/total']}")
+
+    with_loader = [b[0] - a[0] for i, (a, b) in enumerate(zip(steps, steps[1:]))
+                   if (i + 1) % S1_STEPS]  # within an epoch: no validation in between
+    step_only = [z - a for a, z, _, _ in steps]
+    t0 = time.perf_counter()
+    n = sum(b["image"].shape[0] for b in trainer.dataset.get_data_loader("train", epoch=S1_EPOCHS))
+    pps = n / (time.perf_counter() - t0)
+    med = lambda xs: statistics.median(xs) * 1e3
+    log(f"[stage1] {len(steps)} steps + {len(evals)} validations of {S1_VAL} pairs + checkpoints "
+        f"in {t_run:.2f} s; losses total " + " ".join(f"{x[3]['total']:.4f}" for x in steps)
+        + "; val loss/total " + " ".join(f"{r['loss/total']:.4f}" for _, r in evals)
+        + "; the veto and a validation left the parameters and running statistics bit for bit")
+    log(f"[stage1] ms a step alone {med(step_only):.2f} (median of {len(step_only)}); with the "
+        f"loader {med(with_loader):.2f} (median of {len(with_loader)}); the loader alone "
+        f"{pps:.2f} pairs/s ({n} pairs, {conf['data']['num_workers']} workers); peak {peak:.0f} MiB")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return med(step_only), med(with_loader), pps, peak
+
+
+def check_stage2():
+    """Phase 12b: stage 2 with stage 1's best checkpoint grafted into its
+    extractor, the first step against the plain path, then S2_STEPS steps
+    and a validation through `Trainer.train()`. Returns (launches a step,
+    ms a step, peak MiB)."""
+    import statistics
+
+    import torch
+
+    from gluefactory_tpu_torch.train import trainer as tmod
+    from gluefactory_tpu_torch.utils import experiments as exps
+    from gluefactory_tpu_torch.utils.tensor import batch_to_device
+
+    def build(flash, name):
+        tr = tmod.Trainer(stage2_conf(flash), name, exps.experiment_dir(name), device="cuda")
+        tr.build()
+        return tr
+
+    trainer = build(True, "sp_open_lg")
+    mconf, econf = trainer.model.matcher.conf, trainer.model.extractor.conf
+    if (mconf.n_layers, mconf.descriptor_dim, mconf.mp, mconf.checkpointed,
+            econf.max_num_keypoints) != (9, D, False, True, S2_N):
+        fail("stage 2: LightGlue is not 9 x 256, fp32, checkpointed, or not 384 keypoints")
+    best, _ = exps.load_checkpoint(exps.get_best_checkpoint("sp_open_synth"), device="cuda")
+    own = trainer.model.extractor.state_dict()
+    if set(own) != set(best["model"]) or any(not torch.equal(own[k], v)
+                                             for k, v in best["model"].items()):
+        fail("stage 2: the grafted extractor is not stage 1's best checkpoint bit for bit")
+    loader = trainer.dataset.get_data_loader("train", epoch=0)
+    first = batch_to_device(next(iter(loader)), "cuda")
+    del loader
+    held = hold_first_step(trainer, lambda: build(False, "sp_open_lg_plain"), first, "stage 2")
+    log(f"[stage2] {len(own)} extractor tensors grafted from stage 1 bit for bit; batch "
+        f"{tuple(first['view0']['image'].shape)}, {S2_N} keypoints: " + held)
+
+    steps, evals, restore = timed_trainer(trainer)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        trainer.train()
+        t_run = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    finally:
+        restore()
+    per_step = {"K5": 18, "K6b": 18, "K6a": 0, "K7b self": 9, "K7b cross": 18,
+                "K1": 0, "K2": 0, "K4": 0}
+    if len(steps) != S2_STEPS or len(evals) != 1:
+        fail(f"stage 2: {len(steps)} steps and {len(evals)} validations")
+    for i, (_, _, counts, losses) in enumerate(steps):
+        if counts != per_step:
+            fail(f"stage 2, step {i}: launches {counts}, expected {per_step}")
+        if not all(math.isfinite(v) for v in losses.values()) or losses["skipped_nonfinite"]:
+            fail(f"stage 2, step {i}: {losses}")
+    counts = evals[0][0]
+    if (counts["K5"], counts["K6b"], counts["K7b self"], counts["K7b cross"]) != (9, 9, 0, 0) \
+            or not math.isfinite(evals[0][1]["loss/total"]):
+        fail(f"stage 2, validation: launches {counts}, results {evals[0][1]}")
+    ms = statistics.median(z - a for a, z, _, _ in steps) * 1e3
+    log(f"[stage2] {S2_STEPS} steps + validation in {t_run:.2f} s; launches a step {per_step}, "
+        f"the validation 9 K5 + 9 K6b; losses total "
+        + " ".join(f"{x[3]['total']:.4f}" for x in steps)
+        + f"; val loss/total {evals[0][1]['loss/total']:.4f}; ms a step {ms:.2f} (median of "
+        f"{len(steps)}); peak {peak:.0f} MiB")
+    del trainer, first
+    torch.cuda.empty_cache()
+    return per_step, ms, peak
+
+
+def check_stage3(work):
+    """Phase 12c: the HPatches benchmark on phase 8's 50-pair tree with stage
+    2's checkpoint (its experiment), fp32: K1 = K2 = 9 and K4 = 1 launches a
+    pair, finite summaries, keypoints on every pair."""
+    from gluefactory_tpu_torch.utils.export_predictions import load_predictions
+
+    data = work / "data" / "hpatches-sequences-release"
+    build_hpatches_tree(data)
+    n = len(HP_SCENES) * 5
+    # a pair without a match has no homography and an infinite error, so the
+    # medians are finite only once LightGlue matches (three steps from its
+    # seeded start need not): every other summary must be
+    finite = [k for k in HP_SUMMARIES if not k.startswith("mH_error")]
+    summaries, pipe, counts = run_hpatches(data, work, "stage3", HP_LIGHTGLUE, S2_EXTRACTOR,
+                                           checkpoint="sp_open_lg", finite=finite)
+    if set(summaries) != set(HP_SUMMARIES):
+        fail(f"stage 3: summaries {sorted(summaries)}")
+    if counts != [0, 9 * n, 9 * n, n]:
+        fail(f"stage 3: expected K1 = K2 = 9 and K4 = 1 launches a pair and no K8, got {counts}")
+    pred = load_predictions(work / "stage3" / "predictions.npz")
+    kpts = [min(int((p["keypoint_scores0"] > 0).sum()), int((p["keypoint_scores1"] > 0).sum()))
+            for p in pred.values()]
+    if len(kpts) != n or min(kpts) < 1:
+        fail(f"stage 3: the trained detector leaves a pair without keypoints ({kpts})")
+    log(f"[stage3] {n} pairs with the stage-2 checkpoint: keypoints a view min {min(kpts)}, "
+        f"median {sorted(kpts)[n // 2]} (of {S2_N}); matches a pair {summaries['mnum_matches']}, "
+        f"precision@3px {summaries['mprec@3px']:.4f}; H-AUC DLT "
+        + ", ".join(f"{k} {summaries[k]:.4f}" for k in ("H_error_dlt@1px", "H_error_dlt@3px",
+                                                           "H_error_dlt@5px"))
+        + "; RANSAC " + ", ".join(f"{k} {summaries[k]:.4f}" for k in (
+            "H_error_ransac@1px", "H_error_ransac@3px", "H_error_ransac@5px"))
+        + " (no bar: a few steps of training)")
+    return n / pipe.timings["export_s"], pipe.timings["eval_s"]
+
+
+def run_hermetic_loop():
+    """Phase 12: stage 1 -> stage 2 -> stage 3 of the hermetic quality loop;
+    returns stage 2's launches a step under the N = 384 kernel rows' keys."""
+    import shutil
+
+    from gluefactory_tpu_torch.utils import experiments as exps
+
+    t_phase = time.perf_counter()
+    work = ROOT / "outputs" / "chip_smoke_hermetic"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    saved = exps.TRAINING_PATH
+    exps.TRAINING_PATH = work
+    try:
+        s1_ms, s1_loader_ms, s1_pps, s1_peak = check_stage1(work)
+        per_step, s2_ms, s2_peak = check_stage2()
+        pps, eval_s = check_stage3(work)
+        log(f"[hermetic] stage 1: ms a step {s1_ms:.2f} alone, {s1_loader_ms:.2f} with the "
+            f"loader, loader {s1_pps:.2f} pairs/s, peak {s1_peak:.0f} MiB; stage 2: ms a step "
+            f"{s2_ms:.2f}, peak {s2_peak:.0f} MiB; stage 3: export {pps:.2f} pairs/s, eval "
+            f"{eval_s:.2f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        exps.TRAINING_PATH = saved
+        shutil.rmtree(work, ignore_errors=True)
+    return {f"{k} 384": v for k, v in per_step.items() if k in ("K5", "K6b", "K7b self",
+                                                                  "K7b cross")}
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     global TRAIN_B
@@ -2638,6 +3031,22 @@ def main() -> int:
                           "MegaDepth training", "222")):
         kernels.append(dict(name=name, key=f"{key} 2048", route="cuda", source=SRC_ATT,
                             replaces=f"{PAL_ATT}:{line}", **att[key]))
+    # stage 2 of the hermetic loop (phase 12): 384 keypoints, 8 pairs. At this
+    # shape a backward call's autograd and launch overhead outlasts its
+    # kernels, so the kernel and the library call are timed by their kernels'
+    # device time (the plain version, many small launches, by CUDA events)
+    att = {**check_self_attention(28, b=S2_B, n=S2_N, timer=device_ms),
+           **check_cross_attention("stacked", 29, b=S2_B, n=S2_N, timer=device_ms)}
+    s2 = 2 * S2_B
+    for key, name, line in (
+            ("K5", f"K5 fused_attention_packed ({s2}, {S2_N}, 256) f32, stage 2", "383"),
+            ("K6b", f"K6b fused_cross_attention_stacked ({s2}, {S2_N}, 256) f32, stage 2", "744"),
+            ("K7b self", f"K7b attention backward, self form ({s2}, {S2_N}, 256) f32, stage 2",
+             "222"),
+            ("K7b cross", f"K7b attention backward, cross form B={S2_B} {S2_N} x {S2_N} f32, "
+                          "stage 2", "222")):
+        kernels.append(dict(name=name, key=f"{key} {S2_N}", route="cuda", source=SRC_ATT,
+                            replaces=f"{PAL_ATT}:{line}", **att[key]))
     pal_conv = "gluefactory_tpu/ops/pallas_conv.py:222"
     kernels.append(dict(
         name="K8 block0_fused (8, 480, 640, 1) f32 -> (8, 240, 320, 64) bf16", key="K8",
@@ -2717,6 +3126,10 @@ def main() -> int:
 
     # 11. the multispectral slice
     run_mp_slice()
+    torch.cuda.empty_cache()
+
+    # 12. the hermetic loop: stage 1 -> stage 2 -> stage 3
+    per_step.update(run_hermetic_loop())
     torch.cuda.empty_cache()
     for k in kernels:
         if "key" in k:

@@ -11,6 +11,13 @@ Each function repeats OpenCV's semantics on float32 single-channel images:
   REFLECT_101.
 - `resize_cubic`: `cv2.resize(..., INTER_CUBIC)`: source x = (dx + 0.5) s -
   0.5, Keys' cubic with a = -0.75 computed in float32, borders replicated.
+- `resize_linear`, `normalize_minmax` (`cv2.resize(..., INTER_LINEAR)`,
+  `cv2.normalize(..., NORM_MINMAX)`), `get_perspective_transform` (OpenCV's
+  8 x 8 LU in float64) and `rodrigues`: bit for bit with OpenCV 5, each in
+  OpenCV's order of operations.
+- `line` (`cv2.line`, LINE_8, any thickness: OpenCV's `ThickLine`, a
+  widened quadrilateral and two round caps) and `fill_rectangle` (the
+  filled `cv2.rectangle`), pixel for pixel for end points inside the image.
 - `fill_poly`: `cv2.fillPoly` on int32 vertices as OpenCV 5 draws it: the
   8-connected outline, then the even-odd scanline fill of the edge
   collection, each row from the first pixel at or right of the left edge to
@@ -37,6 +44,8 @@ of OpenCV's float32 accumulation. The rasterisers are integer code, exact.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -190,6 +199,119 @@ def resize_cubic(img: np.ndarray, dsize) -> np.ndarray:
     return out.astype(np.float32)
 
 
+def resize_linear(img: np.ndarray, dsize) -> np.ndarray:
+    """`cv2.resize(img, dsize, interpolation=cv2.INTER_LINEAR)` of a float32
+    (H, W) image, bit for bit with OpenCV 5; `dsize` is (width, height).
+    Source x = (dx + 0.5) s - 0.5 in float64, the weight its fraction
+    rounded to float32 (0 past a border, where the tap is clamped), and each
+    pass a float32 lerp p + (q - p) w with one rounding (float64 here, where
+    the product is exact)."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape
+    dw, dh = dsize
+    x0, x1, wx = _linear_taps(dw, w)
+    y0, y1, wy = _linear_taps(dh, h)
+    tmp = _lerp(img[:, x0], img[:, x1], wx)
+    return _lerp(tmp[y0], tmp[y1], wy[:, None])
+
+
+def _linear_taps(n_out: int, n_in: int):
+    fx = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    x0 = np.floor(fx).astype(np.int64)
+    frac = fx - x0
+    frac = np.where((x0 < 0) | (x0 >= n_in - 1), 0.0, frac)
+    x0 = np.clip(x0, 0, n_in - 1)
+    return x0, np.minimum(x0 + 1, n_in - 1), frac.astype(np.float32)
+
+
+def _lerp(p: np.ndarray, q: np.ndarray, w: np.ndarray) -> np.ndarray:
+    return (p.astype(np.float64) + (q - p).astype(np.float64) * w.astype(np.float64)).astype(
+        np.float32)
+
+
+def normalize_minmax(img: np.ndarray, lo: float, hi: float) -> np.ndarray:
+    """`cv2.normalize(img, None, lo, hi, cv2.NORM_MINMAX)` of a float32 image:
+    scale = (hi - lo) / (max - min) rounded to float32, shift = float(lo) -
+    float(min scale), and dst = fma(src, scale, shift) in float32."""
+    img = np.asarray(img, np.float32)
+    smin, smax = float(img.min()), float(img.max())
+    dmin, dmax = min(lo, hi), max(lo, hi)
+    scale = (dmax - dmin) * (1.0 / (smax - smin) if smax - smin > np.finfo(np.float64).eps
+                             else 0.0)
+    scale = float(np.float32(scale))
+    shift = float(np.float32(np.float32(dmin) - np.float32(smin * scale)))
+    return (img.astype(np.float64) * scale + shift).astype(np.float32)
+
+
+def get_perspective_transform(src, dst) -> np.ndarray:
+    """`cv2.getPerspectiveTransform(src, dst)` of four float32 point pairs:
+    the 8 x 8 system of OpenCV (its products of two float32 coordinates
+    rounded to float32) solved by OpenCV's LU with partial pivoting in
+    float64, in its order of operations. float64 (3, 3), H[2, 2] = 1."""
+    src = np.asarray(src, np.float32).reshape(4, 2)
+    dst = np.asarray(dst, np.float32).reshape(4, 2)
+    a = [[0.0] * 8 for _ in range(8)]
+    b = [0.0] * 8
+    for i in range(4):
+        (sx, sy), (dx, dy) = src[i], dst[i]
+        a[i][0] = a[i + 4][3] = float(sx)
+        a[i][1] = a[i + 4][4] = float(sy)
+        a[i][2] = a[i + 4][5] = 1.0
+        a[i][6], a[i][7] = float(-sx * dx), float(-sy * dx)
+        a[i + 4][6], a[i + 4][7] = float(-sx * dy), float(-sy * dy)
+        b[i], b[i + 4] = float(dx), float(dy)
+    x = _lu_solve(a, b)
+    if x is None:
+        return np.zeros((3, 3))
+    return np.array(x + [1.0]).reshape(3, 3)
+
+
+def _lu_solve(a: list, b: list):
+    """OpenCV's `LU` (hal) on an m x m float64 system: partial pivoting by
+    the largest magnitude, elimination with d = -1 / pivot, then back
+    substitution dividing by the pivot. None when a pivot is below 100 eps."""
+    m = len(b)
+    for i in range(m):
+        k = i
+        for j in range(i + 1, m):
+            if abs(a[j][i]) > abs(a[k][i]):
+                k = j
+        if abs(a[k][i]) < np.finfo(np.float64).eps * 100:
+            return None
+        if k != i:
+            a[i], a[k] = a[k], a[i]
+            b[i], b[k] = b[k], b[i]
+        d = -1.0 / a[i][i]
+        for j in range(i + 1, m):
+            alpha = a[j][i] * d
+            for c in range(i + 1, m):
+                a[j][c] += alpha * a[i][c]
+            b[j] += alpha * b[i]
+    for i in range(m - 1, -1, -1):
+        s_ = b[i]
+        for c in range(i + 1, m):
+            s_ -= a[i][c] * b[c]
+        b[i] = s_ / a[i][i]
+    return b
+
+
+def rodrigues(rvec) -> np.ndarray:
+    """`cv2.Rodrigues(rvec)[0]`: the float64 (3, 3) rotation of an axis-angle
+    vector, in OpenCV's order of operations (c I + (1 - c) r r^T + s [r]x
+    with r = rvec / theta, the identity below DBL_EPSILON)."""
+    rx, ry, rz = (float(v) for v in np.asarray(rvec, np.float64).reshape(3))
+    theta = math.sqrt(rx * rx + ry * ry + rz * rz)
+    if theta < np.finfo(np.float64).eps:
+        return np.eye(3)
+    c, s = math.cos(theta), math.sin(theta)
+    c1, itheta = 1.0 - c, 1.0 / theta
+    rx, ry, rz = rx * itheta, ry * itheta, rz * itheta
+    rrt = [rx * rx, rx * ry, rx * rz, rx * ry, ry * ry, ry * rz, rx * rz, ry * rz, rz * rz]
+    cross = [0.0, -rz, ry, rz, 0.0, -rx, -ry, rx, 0.0]
+    eye = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0]
+    return np.array([c * eye[k] + c1 * rrt[k] + s * cross[k] for k in range(9)]).reshape(3, 3)
+
+
 # --------------------------------------------------------------- rasterising
 def _tdiv(a: int, b: int) -> int:
     """C integer division (truncates toward zero)."""
@@ -264,8 +386,10 @@ def _line(img: np.ndarray, p1, p2, color: float) -> None:
     img[ys, xs] = color
 
 
-def _line2(img: np.ndarray, p1, p2, color: float) -> None:
-    """OpenCV's `Line2`: a line between fixed-point (16 bit) endpoints."""
+def _line2(img: np.ndarray, p1, p2, color: float, pixels: list | None = None) -> None:
+    """OpenCV's `Line2`: a line between fixed-point (16 bit) endpoints. With
+    `pixels`, the (y, x) pixels are appended to it instead of drawn (a
+    polygon's outline is drawn in one assignment)."""
     h, w = img.shape
     inside, (x1, y1), (x2, y2) = clip_line(w << XY_SHIFT, h << XY_SHIFT, p1, p2)
     if not inside:
@@ -286,17 +410,20 @@ def _line2(img: np.ndarray, p1, p2, color: float) -> None:
         ecount = (y2 - y1) >> XY_SHIFT
     x1 += XY_ONE >> 1
     y1 += XY_ONE >> 1
-    i = np.arange(max(ecount + 1, 0), dtype=np.int64)
     if ax > ay:
-        xs = (x1 >> XY_SHIFT) + i
-        ys = (y1 + i * y_step) >> XY_SHIFT
+        xs = [(x1 >> XY_SHIFT) + i for i in range(ecount + 1)]
+        ys = [(y1 + i * y_step) >> XY_SHIFT for i in range(ecount + 1)]
     else:
-        ys = (y1 >> XY_SHIFT) + i
-        xs = (x1 + i * x_step) >> XY_SHIFT
-    xs = np.append(xs, (x2 + (XY_ONE >> 1)) >> XY_SHIFT)
-    ys = np.append(ys, (y2 + (XY_ONE >> 1)) >> XY_SHIFT)
-    keep = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
-    img[ys[keep], xs[keep]] = color
+        ys = [(y1 >> XY_SHIFT) + i for i in range(ecount + 1)]
+        xs = [(x1 + i * x_step) >> XY_SHIFT for i in range(ecount + 1)]
+    xs.append((x2 + (XY_ONE >> 1)) >> XY_SHIFT)
+    ys.append((y2 + (XY_ONE >> 1)) >> XY_SHIFT)
+    out = [(y, x) for y, x in zip(ys, xs) if 0 <= x < w and 0 <= y < h]
+    if pixels is not None:
+        pixels += out
+    elif out:
+        yy, xx = zip(*out)
+        img[list(yy), list(xx)] = color
 
 
 def _collect_poly_edges(img: np.ndarray, pts, color: float) -> list:
@@ -429,6 +556,7 @@ def _fill_convex_poly(img: np.ndarray, v: list, color: float, shift: int) -> Non
     delta = (1 << shift) >> 1
     delta1 = delta2 = XY_ONE >> 1
     p0 = (v[-1][0] << (XY_SHIFT - shift), v[-1][1] << (XY_SHIFT - shift))
+    outline: list = []
     xmin = xmax = v[0][0]
     ymin = ymax = v[0][1]
     imin = 0
@@ -442,8 +570,11 @@ def _fill_convex_poly(img: np.ndarray, v: list, color: float, shift: int) -> Non
             _line(img, (p0[0] >> XY_SHIFT, p0[1] >> XY_SHIFT), (p[0] >> XY_SHIFT, p[1] >> XY_SHIFT),
                   color)
         else:
-            _line2(img, p0, p, color)
+            _line2(img, p0, p, color, outline)
         p0 = p
+    if outline:
+        yy, xx = zip(*outline)
+        img[list(yy), list(xx)] = color
     xmin, xmax = (xmin + delta) >> shift, (xmax + delta) >> shift
     ymin, ymax = (ymin + delta) >> shift, (ymax + delta) >> shift
     if npts < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
@@ -490,6 +621,44 @@ def _fill_convex_poly(img: np.ndarray, v: list, color: float, shift: int) -> Non
         y += 1
         if y > ymax:
             break
+
+
+def line(img: np.ndarray, p0, p1, color: float, thickness: int = 1) -> np.ndarray:
+    """`cv2.line(img, p0, p1, color, thickness)` (LINE_8, integer points) in
+    place on a float32 (H, W) image, as OpenCV's `ThickLine` draws it: a
+    1-px line is the 8-connected `Line`; a thicker one fills the
+    quadrilateral of the segment widened by thickness / 2 (rounded to the
+    16-bit fixed point with cvRound, + 0.5 px for an odd thickness) with
+    `FillConvexPoly`, then a round cap of radius (thickness + 1) // 2 on
+    each end with the integer midpoint circle."""
+    x0, y0 = int(p0[0]) << XY_SHIFT, int(p0[1]) << XY_SHIFT
+    x1, y1 = int(p1[0]) << XY_SHIFT, int(p1[1]) << XY_SHIFT
+    if thickness <= 1:
+        _line(img, ((x0 + (XY_ONE >> 1)) >> XY_SHIFT, (y0 + (XY_ONE >> 1)) >> XY_SHIFT),
+              ((x1 + (XY_ONE >> 1)) >> XY_SHIFT, (y1 + (XY_ONE >> 1)) >> XY_SHIFT), color)
+        return img
+    dx, dy = (x0 - x1) / XY_ONE, (y1 - y0) / XY_ONE
+    r = dx * dx + dy * dy
+    odd = thickness & 1
+    half = thickness << (XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (half + odd * XY_ONE * 0.5) / np.sqrt(r)
+        ex, ey = round(dy * r), round(dx * r)  # cvRound: ties to even, as round
+        _fill_convex_poly(img, [(x0 + ex, y0 + ey), (x0 - ex, y0 - ey), (x1 - ex, y1 - ey),
+                                (x1 + ex, y1 + ey)], color, XY_SHIFT)
+    radius = (half + (XY_ONE >> 1)) >> XY_SHIFT
+    for x, y in ((x0, y0), (x1, y1)):
+        fill_circle(img, ((x + (XY_ONE >> 1)) >> XY_SHIFT, (y + (XY_ONE >> 1)) >> XY_SHIFT),
+                    radius, color)
+    return img
+
+
+def fill_rectangle(img: np.ndarray, p0, p1, color: float) -> np.ndarray:
+    """`cv2.rectangle(img, p0, p1, color, -1)` (integer corners) in place on a
+    float32 (H, W) image: `FillConvexPoly` of the four corners."""
+    (x0, y0), (x1, y1) = (int(v) for v in p0), (int(v) for v in p1)
+    _fill_convex_poly(img, [(x0, y0), (x1, y0), (x1, y1), (x0, y1)], color, 0)
+    return img
 
 
 def ellipse_poly(center, axes, angle: int, delta: int) -> list:
@@ -656,5 +825,6 @@ def warp_perspective_cv(img: np.ndarray, H: np.ndarray, size) -> np.ndarray:
 
 
 __all__ = ["gaussian_kernel", "gaussian_blur", "filter2d", "sep_filter", "resize_cubic",
-           "fill_poly", "fill_ellipse", "fill_circle", "ellipse_poly", "clip_line",
-           "warp_perspective", "warp_perspective_cv", "remap_linear"]
+           "resize_linear", "normalize_minmax", "get_perspective_transform", "rodrigues",
+           "fill_poly", "fill_ellipse", "fill_circle", "ellipse_poly", "clip_line", "line",
+           "fill_rectangle", "warp_perspective", "warp_perspective_cv", "remap_linear"]

@@ -1,5 +1,5 @@
-"""SuperPoint detector/descriptor (open architecture), inference
-(counterpart of gluefactory_tpu/models/extractors/superpoint_open.py).
+"""SuperPoint detector/descriptor (open architecture), inference and
+training (counterpart of gluefactory_tpu/models/extractors/superpoint_open.py).
 
 The plain VGG trunk: conv -> ReLU -> BatchNorm (eps 1e-3) blocks. The JAX
 package's space-to-depth trunk is a TPU layout trick with the same math and
@@ -10,6 +10,15 @@ and the pool) runs as one kernel, ops/block0_conv.py, in bf16; it is off by
 default, as in the JAX package. Images are (B, H, W, C) in [0, 1];
 outputs: keypoints (B, K, 2) xy at pixel centers (+0.5), keypoint_scores
 (B, K), descriptors (B, K, D), keypoint_mask (B, K) bool.
+
+With `is_training` (the detector's pretraining on SyntheticShapes) the
+BatchNorm scales and biases train and the BatchNorms run on the batch's
+statistics (flax's, momentum 0.9), updating the running ones; the forward
+gives logits (B, Hc, Wc, 65) and unit dense descriptors (B, Hc, Wc, D), and
+with `image2` in the batch (a warped pair) both views go through the trunk
+as one batch and come out as logits / logits2, dense_descriptors /
+dense_descriptors2. `loss` is `multipoint.utils.losses.superpoint_loss`.
+Without `is_training` nothing records a gradient.
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ from torch import nn
 
 from ...ops.block0_conv import block0_fused
 from ..base_model import BaseModel
-from ..utils.layers import top_k_stable
+from ..utils.layers import batch_norm, top_k_stable
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, None: None}
 
@@ -77,22 +86,28 @@ def bilinear_sample(descriptors: torch.Tensor, x: torch.Tensor, y: torch.Tensor)
 
 
 class VGGBlock(nn.Module):
-    """conv -> ReLU -> inference BatchNorm, NCHW, in the compute dtype."""
+    """conv -> ReLU -> BatchNorm, NCHW, in the compute dtype. The BatchNorm
+    runs on its running statistics, or in training (`is_training`) as flax's
+    batch-mode `nn.BatchNorm` with momentum 0.9 (`layers.batch_norm`)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, relu: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, padding=kernel // 2)
         self.relu = relu
-        for name, init in (("bn_scale", torch.ones), ("bn_bias", torch.zeros),
-                           ("bn_mean", torch.zeros), ("bn_var", torch.ones)):
-            self.register_buffer(name, init(cout))
+        self.bn_scale = nn.Parameter(torch.ones(cout))
+        self.bn_bias = nn.Parameter(torch.zeros(cout))
+        self.register_buffer("bn_mean", torch.zeros(cout))
+        self.register_buffer("bn_var", torch.ones(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, is_training: bool = False) -> torch.Tensor:
         dt = x.dtype
         x = F.conv2d(x, self.conv.weight.to(dt), self.conv.bias.to(dt),
                      padding=self.conv.padding)
         if self.relu:
             x = F.relu(x)
+        if is_training:
+            return batch_norm(x, self.bn_scale, self.bn_bias, self.bn_mean, self.bn_var, True,
+                              momentum=0.9)
         mul, add = self.affine()
         return x * mul.to(dt)[:, None, None] + add.to(dt)[:, None, None]
 
@@ -129,8 +144,6 @@ class SuperPoint(BaseModel):
     def __init__(self, conf=None, device="cuda"):
         super().__init__(conf, device)
         conf = self.conf
-        if conf.is_training:
-            raise NotImplementedError("SuperPoint training is not ported yet (ROADMAP Queue 1)")
         if conf.fused_block0 not in (True, False, "auto"):
             raise ValueError(f"fused_block0 must be True, False or 'auto', got {conf.fused_block0!r}")
         ch = list(conf.channels)
@@ -145,20 +158,55 @@ class SuperPoint(BaseModel):
         ]
         self.blocks = nn.ModuleList(blocks)
         self.stride = stride
-        self.requires_grad_(False)
+        # an inference extractor (a frozen pipeline component) trains nothing
+        self.requires_grad_(bool(conf.is_training))
         self.to(self.device)
 
-    @torch.no_grad()
     def forward(self, data: dict) -> dict:
         self.check_required_keys(data)
+        if self.conf.is_training:
+            return self._forward_train(data)
+        with torch.no_grad():
+            return self._forward_infer(data)
+
+    def _heads(self, x: torch.Tensor, is_training: bool, first: int = 0):
+        """(logits (B, 65, Hc, Wc) fp32, unit dense descriptors (B, D, Hc,
+        Wc) fp32) of an NCHW batch: the trunk from block `first` and both
+        heads."""
+        n_trunk = 2 * (len(self.conf.channels) - 1)
+        for i in range(first, n_trunk, 2):
+            x = self.blocks[i + 1](self.blocks[i](x, is_training), is_training)
+            if i < n_trunk - 2:
+                x = F.max_pool2d(x, 2, 2)
+        desc_a, desc_b, det_a, det_b = self.blocks[n_trunk:]
+        dense = desc_b(desc_a(x, is_training), is_training).float()
+        dense = dense / dense.norm(dim=1, keepdim=True).clamp(min=1e-8)
+        logits = det_b(det_a(x, is_training), is_training).float()
+        return logits, dense
+
+    def _forward_train(self, data: dict) -> dict:
+        """The detector / descriptor training outputs. A paired batch
+        (`image2`) runs both views through the trunk as one batch, so that
+        BatchNorm's batch statistics see both, and splits the outputs."""
+        image = data["image"]
+        paired = "image2" in data
+        if paired:
+            image = torch.cat([image, data["image2"]], 0)
+        image = _gray(image).permute(0, 3, 1, 2)
+        dtype = _DTYPES[self.conf.get("dtype")]
+        logits, dense = self._heads(image.to(dtype) if dtype is not None else image, True)
+        logits, dense = logits.permute(0, 2, 3, 1), dense.permute(0, 2, 3, 1)
+        if paired:
+            b = logits.shape[0] // 2
+            return {"logits": logits[:b], "logits2": logits[b:],
+                    "dense_descriptors": dense[:b], "dense_descriptors2": dense[b:]}
+        return {"logits": logits, "dense_descriptors": dense}
+
+    def _forward_infer(self, data: dict) -> dict:
         conf = self.conf
-        image = data["image"]  # (B, H, W, C)
-        if image.shape[-1] == 3:
-            gray = torch.tensor([0.299, 0.587, 0.114], dtype=image.dtype, device=image.device)
-            image = (image * gray).sum(-1, keepdim=True)
+        image = _gray(data["image"])  # (B, H, W, C)
         dtype = _DTYPES[conf.get("dtype")]
         n_trunk = 2 * (len(conf.channels) - 1)
-        first = 0
         fused = conf.fused_block0 is True or (
             conf.fused_block0 == "auto" and image.device.type == "cuda")
         # the kernel takes one input channel, 64 channels and a pooled block;
@@ -168,23 +216,12 @@ class SuperPoint(BaseModel):
             x = x.permute(0, 3, 1, 2)  # NCHW over channels-last memory: no copy
             if dtype != torch.bfloat16:  # the kernel computes in bf16; keep the conf's type
                 x = x.float()
-            first = 2
+            logits, dense = self._heads(x, False, first=2)
         else:
             x = image.permute(0, 3, 1, 2)
-            x = x.to(dtype) if dtype is not None else x
-
-        for i in range(first, n_trunk, 2):
-            x = self.blocks[i + 1](self.blocks[i](x))
-            if i < n_trunk - 2:
-                x = F.max_pool2d(x, 2, 2)
-        features = x
-
-        desc_a, desc_b, det_a, det_b = self.blocks[n_trunk:]
-        dense = desc_b(desc_a(features)).float()
-        dense = dense / dense.norm(dim=1, keepdim=True).clamp(min=1e-8)
+            logits, dense = self._heads(x.to(dtype) if dtype is not None else x, False)
         if dtype is not None:
             dense = dense.to(dtype)
-        logits = det_b(det_a(features)).float()
 
         scores = torch.softmax(logits, dim=1)[:, :-1]
         scores = F.pixel_shuffle(scores, self.stride)[:, 0]  # (B, H, W)
@@ -215,6 +252,26 @@ class SuperPoint(BaseModel):
         if conf.dense_outputs:
             pred["dense_descriptors"] = dense.permute(0, 2, 3, 1).float()
         return pred
+
+    def loss(self, pred: dict, data: dict):
+        """The self-supervised detector (+ paired descriptor) loss
+        (`multipoint.utils.losses.superpoint_loss`, cell 8): data holds
+        keypoint_map (B, H, W) and valid_mask, and for pairs keypoint_map2,
+        valid_mask2 and H_0to1. Inference predictions carry no training
+        outputs and raise NotImplementedError, which a pipeline skips."""
+        if "logits" not in pred:
+            raise NotImplementedError
+        from ...multipoint.utils.losses import superpoint_loss
+
+        return superpoint_loss(pred, data, {"cell": 8})
+
+
+def _gray(image: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 1) of an RGB or gray (B, H, W, C) image."""
+    if image.shape[-1] == 3:
+        gray = torch.tensor([0.299, 0.587, 0.114], dtype=image.dtype, device=image.device)
+        return (image * gray).sum(-1, keepdim=True)
+    return image
 
 
 __main_model__ = SuperPoint

@@ -25,7 +25,7 @@ class HomographyMatcher(BaseModel):
     def __init__(self, conf=None, device="cuda"):
         super().__init__(conf, device)
         if self.conf.use_lines:
-            raise NotImplementedError("line ground truth is not ported yet (ROADMAP Queue 1)")
+            raise NotImplementedError("line ground truth is not ported yet (ROADMAP Queue 1 item 5)")
 
     @torch.no_grad()
     def forward(self, data: dict) -> dict:

@@ -123,7 +123,7 @@ class LightGlue(BaseModel):
         conf = self.conf
         if conf.add_scale_ori:
             raise NotImplementedError(
-                "add_scale_ori is not ported yet (ROADMAP Queue 1 item 9, with the "
+                "add_scale_ori is not ported yet (ROADMAP Queue 1 item 4, with the "
                 "extractors that give scales and orientations)")
         d, n = conf.descriptor_dim, conf.n_layers
         dh = d // conf.num_heads

@@ -145,7 +145,7 @@ class SuperGlue(BaseModel):
         super().__init__(conf, device)
         conf = self.conf
         if conf.is_training:
-            raise NotImplementedError("SuperGlue training is not ported yet (ROADMAP Queue 1)")
+            raise NotImplementedError("SuperGlue training is not ported yet (ROADMAP Queue 1 item 2)")
         d = conf.descriptor_dim
         self.kenc = _MLP(3, (*conf.keypoint_encoder, d), conf.ln)
         # layer 2i is the self step of pair i, layer 2i + 1 its cross step

@@ -42,9 +42,9 @@ class TwoViewPipeline(BaseModel):
         super().__init__(conf, device)
         for k in ("filter", "solver"):
             if self._has(k):
-                raise NotImplementedError(f"the {k} component is not ported yet (ROADMAP Queue 1)")
+                raise NotImplementedError(f"the {k} component is not ported yet (ROADMAP Queue 1 item 2)")
         if self._has("extractor") and self.conf.extractor.get("trainable", False):
-            raise NotImplementedError("a trainable extractor is not ported yet (ROADMAP Queue 1)")
+            raise NotImplementedError("a trainable extractor is not ported yet (ROADMAP Queue 1 item 2)")
         self.extractor = self.matcher = self.ground_truth = None
         for k in self.components:
             if self._has(k):

@@ -1,7 +1,8 @@
 """Torch layers with flax's semantics, shared by the models carried over from
 flax trees (MultiPoint, XPoint's backbones, SuperPoint-MagicLeap): `Conv`
 pads "SAME" as flax does (asymmetrically, (0, 1) for a 3 x 3 kernel at
-stride 2 on an even side), `BatchNorm` is flax's (eps 1e-3, momentum 0.99),
+stride 2 on an even side), `BatchNorm` is flax's (eps 1e-3, momentum 0.99, the
+batch's biased variance in training),
 and `top_k_stable` breaks ties as `jax.lax.top_k` does. Parameter names are
 those `weights.params_from_jax` gives a flax leaf: kernel -> weight, scale
 -> weight, mean / var -> running_mean / running_var."""
@@ -44,10 +45,38 @@ def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               running_mean: torch.Tensor, running_var: torch.Tensor, is_training: bool,
+               momentum: float, eps: float = 1e-3) -> torch.Tensor:
+    """flax's `nn.BatchNorm` on an NCHW tensor. In training it normalises with
+    the batch's mean and biased variance, E[x^2] - E[x]^2 clipped at 0 (flax's
+    fast variance), both in fp32, and updates the running statistics in place
+    as flax updates its `batch_stats`: r <- m r + (1 - m) stat, with no
+    unbiased correction. Otherwise it normalises with the running statistics.
+    y = (x - mean) * (rsqrt(var + eps) * scale) + bias, flax's order. A caller
+    that must not keep the update (a vetoed step, validation) restores the
+    buffers (`train/step.py`)."""
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    if is_training:
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.float()
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            running_mean.copy_(momentum * running_mean + (1 - momentum) * mean.detach())
+            running_var.copy_(momentum * running_var + (1 - momentum) * var.detach())
+    else:
+        mean, var = running_mean, running_var
+    mul = torch.rsqrt(var + eps) * scale
+    y = (x - mean.reshape(shape)) * mul.reshape(shape) + bias.reshape(shape)
+    return y.to(x.dtype)
+
+
 class BatchNorm(nn.Module):
-    """flax's `nn.BatchNorm` (eps 1e-3, momentum 0.99) on NCHW tensors:
-    weight / bias are flax's scale / bias, the running statistics its
-    `batch_stats` mean / var."""
+    """flax's `nn.BatchNorm` with its defaults (eps 1e-3 as the models set
+    it, momentum 0.99) on NCHW tensors (`batch_norm`): weight / bias are
+    flax's scale / bias, the running statistics its `batch_stats` mean /
+    var."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -57,8 +86,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, is_training: bool) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=is_training, momentum=0.01, eps=1e-3)
+        return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
+                          is_training, momentum=0.99)
 
 
 def top_k_stable(scores: torch.Tensor, k: int):
@@ -68,4 +97,4 @@ def top_k_stable(scores: torch.Tensor, k: int):
     return values[:, :k], index[:, :k]
 
 
-__all__ = ["same_padding", "Conv", "conv_nhwc", "BatchNorm", "top_k_stable"]
+__all__ = ["same_padding", "Conv", "conv_nhwc", "batch_norm", "BatchNorm", "top_k_stable"]

@@ -1,1 +1,1 @@
-"""Multispectral datasets."""
+"""Multispectral datasets and SyntheticShapes."""

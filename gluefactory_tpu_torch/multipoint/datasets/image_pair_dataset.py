@@ -11,7 +11,7 @@ augmentation, in the JAX order. The val and test splits draw those from
 `RandomState(seed + idx)` as the JAX package does; its train split draws
 them unseeded, where the port seeds `seed + idx + 1_000_003 * (epoch + 1)`
 (`set_epoch`), the rule of the homography dataset. The HDF5 source
-(`filename`) is not ported: it raises (ROADMAP Queue 1 item 7).
+(`filename`) is not ported: it raises (ROADMAP Queue 1, not portable).
 """
 
 from __future__ import annotations
@@ -109,7 +109,7 @@ class ImagePairDataset(BaseDataset):
         if conf.filename:
             raise NotImplementedError(
                 "the HDF5 source of the multispectral dataset is not ported (h5py is outside "
-                "the port; ROADMAP Queue 1 item 7)")
+                "the port; ROADMAP Queue 1, not portable)")
         self.photo_aug = augmentations[conf.augmentation.photometric.get("name", "dark")]()
         names = [f"synthetic/{i:05d}" for i in range(int(conf.synthetic.pool))]
         n_train = int(len(names) * conf.train_fraction)

@@ -14,14 +14,16 @@ gluefactory_tpu/multipoint/models/backbones.py), on NHWC tensors:
 Each maps a (B, 1, H, W) image to (B, out_dim, H/8, W/8) features, NCHW
 at the boundary as MultiPoint's VGG encoder, NHWC inside. flax's defaults
 are kept: LayerNorm eps 1e-6 and the tanh GELU. Module and parameter names
-follow the flax tree (`weights.params_from_jax` maps it); the V1 table's
-size is fixed by the window at construction, so a feature map smaller than
-the window raises where the JAX model would shrink the window.
+follow the flax tree (`weights.params_from_jax` maps it). A map narrower
+than the window runs the window cut to the map, as in the JAX blocks; the
+V1 table then has the size a flax tree initialised on that map gives it
+(`WindowAttentionV1`).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -232,21 +234,45 @@ class SwinV2Encoder(nn.Module):
 
 class WindowAttentionV1(nn.Module):
     """Swin V1 window attention: scaled dot product + a learned
-    relative-position bias table."""
+    relative-position bias table of (2 ws - 1)^2 rows.
+
+    The JAX block cuts the window to a map narrower than it and declares the
+    table for the window the map gives when the model is initialised, so a
+    flax tree initialised on a small map holds a smaller table. Loading a
+    state dict takes the table's shape from it; the forward then runs the
+    window that table was made for and refuses any other, as flax refuses a
+    parameter whose declared shape differs from the stored one."""
 
     def __init__(self, dim: int, heads: int, window: int):
         super().__init__()
-        self.heads, self.window = heads, window
+        self.heads = heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.randn((2 * window - 1) ** 2, heads) * 0.02)
         self.proj = nn.Linear(dim, dim)
 
+    @property
+    def window(self) -> int:
+        return (math.isqrt(self.relative_position_bias_table.shape[0]) + 1) // 2
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        table = state_dict.get(prefix + "relative_position_bias_table")
+        own = self.relative_position_bias_table
+        if table is not None and table.shape != own.shape and table.dim() == 2 \
+                and table.shape[1] == own.shape[1] \
+                and math.isqrt(table.shape[0]) ** 2 == table.shape[0]:
+            self.relative_position_bias_table = nn.Parameter(
+                own.new_empty(table.shape), requires_grad=own.requires_grad)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
     def forward(self, x, ws: int, mask=None):
         nw, n, c = x.shape
         if ws != self.window:
-            raise ValueError(f"a {int(n ** 0.5)}-wide map is smaller than the {self.window}-wide "
-                             "window the relative-position table was made for")
+            raise ValueError(
+                f"the map gives a {ws}-wide window, but the relative-position table was made "
+                f"for a {self.window}-wide one: the JAX model declares the table at "
+                "initialisation for the map it sees then, and flax refuses it on a map that "
+                "gives another window (initialise on a map of this size)")
         q, k, v = (split_heads(t, self.heads) for t in self.qkv(x).chunk(3, dim=-1))
         attn = (q @ k.transpose(-2, -1)) * (c // self.heads) ** -0.5
         idx = on_device(_relative_position_index, x.device, ws).reshape(-1)

@@ -3,8 +3,8 @@ descriptor (counterpart of gluefactory_tpu/multipoint/models/multipoint.py).
 
 Two modality-specific VGG encoders (optical and thermal) feed shared
 detector and descriptor heads. Each layer is conv -> ReLU -> BatchNorm (eps
-1e-3, flax's momentum 0.99, i.e. torch's 0.01; batch statistics with
-`is_training`, the running ones otherwise). Both encoders run on the whole
+1e-3, flax's momentum 0.99; the batch's statistics with `is_training`, the
+running ones otherwise: `models.utils.layers.batch_norm`). Both encoders run on the whole
 batch and are blended by `is_optical`, as the JAX model does, so that in
 training the BatchNorm statistics see the whole batch.
 
@@ -14,8 +14,8 @@ descriptors (B, Hc, Wc, D); with `max_num_keypoints` also keypoints (B, K,
 2) xy at pixel centres, keypoint_scores, keypoint_mask (score above
 `detection_threshold`) and descriptors (B, K, D). Top-k ties go to the
 lower flat index, as `jax.lax.top_k` breaks them. Module and parameter
-names follow the flax tree (`weights.params_from_jax` maps it). Training
-(`multipoint/utils/losses.py`) is not ported: `loss` raises.
+names follow the flax tree (`weights.params_from_jax` maps it). `loss` is
+`multipoint.utils.losses.superpoint_loss` with the configuration's cell.
 """
 
 from __future__ import annotations
@@ -143,9 +143,9 @@ class MultiPoint(BaseModel):
         return pred
 
     def loss(self, pred, data):
-        raise NotImplementedError(
-            "MultiPoint training (multipoint/utils/losses.py) is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+        from ..utils.losses import superpoint_loss
+
+        return superpoint_loss(pred, data, self.conf)
 
 
 __main_model__ = MultiPoint

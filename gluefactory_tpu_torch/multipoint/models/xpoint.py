@@ -12,7 +12,7 @@ with `window` where it applies, feeding MultiPoint's shared detector and
 descriptor heads. The JAX module's other encoders (`swin_lite`, `cbam`,
 `vit`), which no configuration of the repo names, and the homography
 regression head (`homography_head`, with multipoint/models/homography_net.py)
-are not ported yet and raise (ROADMAP Queue 1 item 7).
+are not ported yet and raise (ROADMAP Queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ class XPoint(MultiPoint):
         if self.conf.homography_head:
             raise NotImplementedError(
                 "XPoint's homography head (multipoint/models/homography_net.py) is not ported "
-                "yet (ROADMAP Queue 1 item 7)")
+                "yet (ROADMAP Queue 1 item 7b)")
 
     def _make_encoder(self) -> nn.Module:
         conf = self.conf
@@ -58,7 +58,7 @@ class XPoint(MultiPoint):
                                  blocks_per_stage=max(depth // 2, 1), window=window)
         if name in ("swin_lite", "cbam", "vit"):
             raise NotImplementedError(
-                f"XPoint's '{name}' backbone is not ported yet (ROADMAP Queue 1 item 7)")
+                f"XPoint's '{name}' backbone is not ported yet (ROADMAP Queue 1 item 7b)")
         raise ValueError(f"unknown XPoint backbone '{name}'")
 
 

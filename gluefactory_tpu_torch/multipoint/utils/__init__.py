@@ -1,1 +1,1 @@
-"""Multispectral evaluation helpers."""
+"""Multispectral evaluation helpers, the detector losses and box NMS."""

@@ -13,10 +13,13 @@ none (constant), `exp` (decay by 10 every `exp_div_10` steps after
 cosine from lr down to 0 at `steps`, 0 after).
 
 The veto: when the loss or any gradient is not finite, the whole update is
-skipped. Parameters, both moments and the optimizer's count (so the
-schedule) keep their values, `step` still advances and the losses report
-`skipped_nonfinite = 1`. Reading that flag costs one host synchronisation
-a step.
+skipped. Parameters, both moments, the optimizer's count (so the schedule)
+and the model's buffers (the running statistics that a batch-mode
+BatchNorm moved in the forward, as the JAX step keeps the old
+`batch_stats`) keep their values, `step` still advances and the losses
+report `skipped_nonfinite = 1`. Reading that flag costs one host
+synchronisation a step; the buffers are copied before the forward (a few
+KiB) and put back only on a vetoed step, which adds no host read.
 
 With `grad_stats`, the losses also hold `grad/norm`, the global norm of the
 gradients before the clip (0 on a vetoed step, whose gradients the JAX step
@@ -117,8 +120,9 @@ def module_of(name: str) -> str:
 
 def make_train_step(model, mark: Optional[Callable[[str], None]] = None,
                     grad_stats: bool = False):
-    """Build `train_step(state, batch) -> (state, losses)` for a two-view
-    pipeline style model (`model(batch)`, `model.loss(pred, batch)`).
+    """Build `train_step(state, batch) -> (state, losses)` for any model with
+    `model(batch)` and `model.loss(pred, batch)`: a two-view pipeline, or a
+    bare extractor such as SuperPoint-open in its pretraining.
 
     `losses` holds the batch mean of every entry of the model's losses, as
     0-d tensors on the model's device, `skipped_nonfinite` and, with
@@ -127,9 +131,11 @@ def make_train_step(model, mark: Optional[Callable[[str], None]] = None,
     for timing."""
     mark = mark or (lambda name: None)
     modules = sorted({module_of(k) for k, _ in model.named_parameters()})
+    buffers = list(model.buffers())
 
     def train_step(state: TrainState, batch: dict):
         params = list(state.params.values())
+        saved = [b.clone() for b in buffers]
         pred = model(batch)
         losses, _ = model.loss(pred, batch)
         loss = losses["total"].mean()
@@ -143,7 +149,9 @@ def make_train_step(model, mark: Optional[Callable[[str], None]] = None,
         out = {k: v.detach().float().mean() for k, v in losses.items()}
         if grad_stats:
             out.update(_grad_norms(state.params, grads, modules, skipped, loss.device))
-        if not skipped:
+        if skipped:
+            restore_buffers(buffers, saved)
+        else:
             state.optimizer.update(grads)
         state.step += 1
         out["skipped_nonfinite"] = torch.tensor(float(skipped), device=loss.device)
@@ -151,6 +159,13 @@ def make_train_step(model, mark: Optional[Callable[[str], None]] = None,
         return state, out
 
     return train_step
+
+
+@torch.no_grad()
+def restore_buffers(buffers: list, saved: list) -> None:
+    """Put copies taken by `[b.clone() for b in buffers]` back, in place."""
+    for b, s in zip(buffers, saved):
+        b.copy_(s)
 
 
 @torch.no_grad()
@@ -164,4 +179,5 @@ def _grad_norms(params: dict, grads: list, modules: list, skipped: bool, device)
     return out
 
 
-__all__ = ["TrainState", "Optimizer", "make_optimizer", "make_schedule", "make_train_step"]
+__all__ = ["TrainState", "Optimizer", "make_optimizer", "make_schedule", "make_train_step",
+           "restore_buffers"]

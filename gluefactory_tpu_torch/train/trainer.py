@@ -21,7 +21,9 @@ resumes from the experiment's last checkpoint; `train()` runs the epochs:
     precision of the predicted matches (`val/match_AP`, IGNORE labels
     masked; the JAX package also draws the PR figure, which needs
     matplotlib and is left out here); a new best `best_key` value writes
-    `checkpoint_best`;
+    `checkpoint_best`. A batch-mode BatchNorm normalises validation batches
+    with their own statistics, and its running statistics are put back
+    afterwards, as the JAX trainer discards that update;
   - every `save_every_iter` steps and at the end of an epoch a checkpoint
     (pruned to `keep_last_checkpoints`), then `train.benchmarks` (hpatches,
     synthetic, synthetic_pose) through `eval.run_benchmark` on the live
@@ -31,7 +33,11 @@ resumes from the experiment's last checkpoint; `train()` runs the epochs:
     `torch.profiler` into `<output_dir>/profile`.
 
 `train_steps(batches, steps)` takes optimizer steps on any iterable of
-batches without the epoch loop. `train.plot` (match figures) raises: the
+batches without the epoch loop. The model is any registered model with a
+`loss`: a two-view pipeline, or a bare extractor (SuperPoint-open on
+SyntheticShapes, `configs/superpoint-open_synthetic_pretrain.json`), whose
+checkpoint a later experiment grafts into its `extractor` through
+`load_experiment` and `load_experiment_prefix`. `train.plot` (match figures) raises: the
 visualisation module is not ported (ROADMAP Queue 1 item 6). Multi-device
 training waits for DDP (ROADMAP Queue 1 item 2). The step has no
 randomness (no dropout, no augmentation on the device); model
@@ -66,7 +72,7 @@ from ..utils.summary import ExperimentWriter
 from ..utils.tensor import batch_to_device
 from ..utils.tools import AverageMetric, MedianMetric, PRMetric, set_seed
 from ..weights import load_hermetic
-from .step import TrainState, make_optimizer, make_train_step
+from .step import TrainState, make_optimizer, make_train_step, restore_buffers
 
 logger = logging.getLogger(__name__)
 PACKAGE = Path(__file__).resolve().parent.parent
@@ -198,6 +204,31 @@ class Trainer:
         aggs = defaultdict(AverageMetric)
         medians = {k: MedianMetric() for k in conf.median_metrics}
         pr = PRMetric() if conf.get("pr_curves") else None
+        # the configuration's mode (a batch-mode BatchNorm normalises with the
+        # batch's statistics), but the running statistics are put back after
+        buffers = list(self.model.buffers())
+        saved = [b.clone() for b in buffers]
+        try:
+            self._evaluate_batches(epoch, aggs, medians, pr)
+        finally:
+            restore_buffers(buffers, saved)
+        results = {k: m.compute() for k, m in aggs.items()}
+        results.update({f"{k}_median": m.compute() for k, m in medians.items()})
+        if pr is not None:
+            labels, scores = pr.compute()
+            if len(labels) > 0:
+                order = np.argsort(-scores)
+                tp = np.cumsum(labels[order])
+                precision = tp / (np.arange(len(tp)) + 1)
+                results["match_AP"] = float(np.sum(precision * labels[order])
+                                            / max(labels.sum(), 1))
+        logger.info("[Validation epoch %d iter %d] %s", epoch, it,
+                    {k: round(float(v), 4) for k, v in results.items() if is_num(v)})
+        if self.writer is not None:
+            self.writer.scalars(it, results, prefix="val/")
+        return results
+
+    def _evaluate_batches(self, epoch: int, aggs, medians, pr) -> None:
         for batch in self.dataset.get_data_loader("val", epoch=epoch):
             data = batch_to_device(batch, self.device)
             pred = self.model(data)
@@ -217,21 +248,6 @@ class Trainer:
                 aggs[f"loss/{k}" if k in losses else k].update(arr)
                 if k in medians:
                     medians[k].update(arr)
-        results = {k: m.compute() for k, m in aggs.items()}
-        results.update({f"{k}_median": m.compute() for k, m in medians.items()})
-        if pr is not None:
-            labels, scores = pr.compute()
-            if len(labels) > 0:
-                order = np.argsort(-scores)
-                tp = np.cumsum(labels[order])
-                precision = tp / (np.arange(len(tp)) + 1)
-                results["match_AP"] = float(np.sum(precision * labels[order])
-                                            / max(labels.sum(), 1))
-        logger.info("[Validation epoch %d iter %d] %s", epoch, it,
-                    {k: round(float(v), 4) for k, v in results.items() if is_num(v)})
-        if self.writer is not None:
-            self.writer.scalars(it, results, prefix="val/")
-        return results
 
     # ------------------------------------------------------------------ train
     def train_steps(self, batches: Iterable[Mapping], steps: int | None = None) -> list:

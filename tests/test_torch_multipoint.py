@@ -8,7 +8,11 @@ scores within 1e-4 (measured <= 7.1e-6, scunet's logits); keypoints equal
 where the scores are separated (no neighbour in the ranking within twice
 the largest score difference between the packages: ties and near-ties may
 order either way, and the seeded detectors score most pixels near 1/65);
-the flax tree back through `params_to_jax` bit for bit. Routing: the thermal view goes through the
+the flax tree back through `params_to_jax` bit for bit. XPoint's swinir on a
+16 x 48 image, whose feature map is narrower than the window, within 1e-4
+of the JAX model initialised on that image (its window cut to the map, its
+relative-position table declared for the cut window); a table made for
+another window refused, as flax refuses it. Routing: the thermal view goes through the
 thermal encoder, also when the two-view pipeline stacks both views into one
 extractor call.
 """
@@ -163,9 +167,54 @@ def test_unported_parts_raise():
         get_model(MP + "xpoint")({"homography_head": True, **XP}, device="cpu")
     with pytest.raises(ValueError, match="unknown XPoint backbone"):
         get_model(MP + "xpoint")({"backbone": "resnet", **XP}, device="cpu")
-    model = get_model(MP + "multipoint")(MODELS["multipoint"][1], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss({}, {})
+
+
+@pytest.fixture(scope="module")
+def swinir_small():
+    """XPoint swinir (window 4) initialised by the JAX package on a 16 x 48
+    image, whose 2 x 6 feature map cuts the window to 2: the JAX blocks
+    declare the 3 x 3-entry relative-position table of that window."""
+    conf = {"backbone": "swinir", **XP}
+    img = np.random.RandomState(7).rand(2, 16, 48, 1).astype(np.float32)
+    jm = jax_model(MP_JAX + "xpoint").from_conf(conf)
+    data = {"image": jnp.asarray(img)}
+
+    def init_apply(key, data):
+        variables = jm.init(key, data)
+        return variables, jm.apply(variables, data)
+
+    variables, ref = jax.tree.map(np.asarray, jax.jit(init_apply)(jax.random.PRNGKey(0), data))
+    return conf, img, variables, ref
+
+
+def test_swinir_window_cut_to_a_small_map_matches_jax(swinir_small):
+    conf, img, variables, ref = swinir_small
+    table = variables["params"]["encoder_optical"]["rstb0"]["block0"]["attn"]
+    assert table["relative_position_bias_table"].shape == (9, 2)
+    model = get_model(MP + "xpoint")(conf, device="cpu")
+    model.load_state_dict(params_from_jax(variables), strict=True)
+    with torch.no_grad():
+        out = {k: v.numpy() for k, v in model({"image": torch.from_numpy(img)}).items()}
+    for k in ("logits", "prob", "dense_descriptors"):
+        np.testing.assert_allclose(out[k], ref[k], rtol=0, atol=1e-4, err_msg=k)
+    back = dict(_flat(params_to_jax(model.state_dict())))
+    for k, v in _flat(variables):
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("case", ["small table, large map", "large table, small map"])
+def test_swinir_refuses_a_table_of_another_window(case, swinir_small, inputs):
+    """flax refuses a stored table whose shape differs from the one the
+    map declares (ScopeParamShapeError); the port says why."""
+    conf, small, variables, _ = swinir_small
+    model = get_model(MP + "xpoint")(conf, device="cpu")
+    if case == "small table, large map":
+        model.load_state_dict(params_from_jax(variables), strict=True)
+        img = inputs[0]
+    else:
+        img = small
+    with torch.no_grad(), pytest.raises(ValueError, match="relative-position table"):
+        model({"image": torch.from_numpy(img)})
 
 
 @pytest.mark.parametrize("backbone", ["swin_lite", "cbam", "vit"])
