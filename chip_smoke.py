@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SuperPoint-open + LightGlue (full depth,
-adaptive, training), SuperGlue, the benchmarks, the multispectral slice and
-the hermetic loop (the detector's pretraining -> LightGlue -> HPatches) on
-one GPU.
+adaptive, training), SuperGlue, the benchmarks, the multispectral slice,
+the hermetic loop (the detector's pretraining -> LightGlue -> HPatches) and
+the other training paths (bf16, a trainable extractor, SuperGlue, two
+processes) on one GPU.
 
     python3 chip_smoke.py [--train-batch PAIRS]
 
@@ -107,7 +108,7 @@ one GPU.
  12. the hermetic loop: (a) stage 1, configs/superpoint-open_synthetic_pretrain.json
      at its width (8 SyntheticShapes pairs of 240 x 320 rendered at 480 x
      640 a step, SuperPoint-open 64-64-128-128-256 with 256-D descriptors,
-     fp32, batch-mode BatchNorm) through the trainer for 2 epochs of 8
+     fp32, batch-mode BatchNorm) through the trainer for 2 epochs of 4
      steps, a validation of 16 pairs and a checkpoint at each epoch's end:
      the first step's losses within 1e-4 of the port's CPU run on the same
      batch and weights, the heads' last BatchNorm-scale gradients within
@@ -127,7 +128,32 @@ one GPU.
      K1 = K2 = 9 and K4 = 1 a pair, keypoints on every pair, the summaries
      finite but the median errors (infinite while the three-step LightGlue
      matches nothing), export pairs/s, eval seconds, H-AUC without a bar.
-     The kernel rows add K5, K6b and K7b at stage 2's shape, (16, 384, 256).
+     The kernel rows add K5, K6b and K7b at stage 2's shape, (16, 384, 256);
+ 13. the training paths that LightGlue training lacked, on three batches of
+     phase 5's shape (32 pairs at 480 x 640, 512 keypoints): (a) `mp: true`
+     (LightGlue 9 x 256 in bf16, checkpointed): 18 K5 + 18 K6b + 27 K7b a
+     step, all bf16, the first step's total and two gradients against the
+     bf16 plain path (MP_PLAIN) and against the fp32 step (MP_GAP: twice the
+     JAX package's own bf16-to-fp32 gap, scripts/torch_mp_gap.py), ms a
+     step and peak memory beside phase 5's; (b) `extractor.trainable: true`:
+     `fused_block0: True` raises, the first and the descriptor head's last
+     conv gradients on a b2 batch (fp32 extractor) within 0.05 max|g| of
+     the float64 extractor's on the same keypoints and upstream gradient,
+     18 K5 + 18 K6b + 27 K7b a step, the extractor's parameters moved and
+     its running statistics not, ms a step and peak memory; (c) SuperGlue
+     (9 layer pairs x 256, 4 heads, 50 Sinkhorn iterations, seeded) as the
+     trained matcher: 36 K7a + 36 per-head K7b a step, the first step
+     within 1e-4 of the plain attention and two gradients within 1e-3
+     max|g|, the loss falling over five steps on one batch, ms a step, peak
+     memory, the Sinkhorn iterations' share; (d) two processes on the one
+     card (gloo, named: NCCL takes one rank a device), 16 pairs a rank,
+     started as `chip_smoke.py --ddp-rank R ...`, against one process at
+     32 on the same global batches for DDP_STEPS steps: the reduced
+     gradients within 1e-4 max|g|, the parameters within DDP_ATOL, a NaN
+     slice on rank 1 alone skipped on both ranks, ms a step with the
+     all-reduce and the all-reduce's own ms. The kernel rows add the bf16
+     K5, K6b and K7b at (64, 512, 256) (13a's) and K7a and the per-head K7b
+     at (32, 4, 512, 64) (13c's).
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -492,16 +518,18 @@ def autograd_reference(fn, inputs, grads_out):
     return torch.autograd.grad(outs, leaves, [g.float() for g in grads_out])
 
 
-def attention_bound(pairs, n_products, tensors_bytes):
+def attention_bound(pairs, n_products, tensors_bytes, peak=PEAK_FP32_PRODUCT):
     """Bound of `n_products` N x N x 64 products per head over the valid
-    (query, key) pairs, at fp32 accuracy (the training type)."""
-    return bound(2.0 * n_products * D * pairs, tensors_bytes, PEAK_FP32_PRODUCT)
+    (query, key) pairs, at fp32 accuracy (the training type) unless `peak`
+    names another rate (bf16 inputs: PEAK_BF16)."""
+    return bound(2.0 * n_products * D * pairs, tensors_bytes, peak)
 
 
-def check_self_attention(seed, b=None, n=None, timer=timed):
+def check_self_attention(seed, b=None, n=None, timer=timed, bf16_rows=False):
     """K5 and the self form of K7b at (2b, n, 256) (default: the training
     shape, (64, 512, 256)): fp32 (timed by `timer`, the plain version by
-    `timed`) and bf16."""
+    `timed`) and bf16; with `bf16_rows` the bf16 forms are timed too, as
+    rows "K5 bf16" and "K7b self bf16" (the `mp: True` step's)."""
     import torch
     import torch.nn.functional as F
 
@@ -528,8 +556,10 @@ def check_self_attention(seed, b=None, n=None, timer=timed):
                     for g, r, w in zip(grads, autograd_reference(fn, (q, k, v), (do,)), "qkv"))
         log(f"[kernel] K5 / K7b self form {name}: forward max abs err {err_f:.3g}, "
             f"gradients {err_b:.3g} (atol %g + rtol %g)" % TOL[name])
-        if dtype != torch.float32:
+        if dtype != torch.float32 and not bf16_rows:
             continue
+        suffix, size, peak = ("", 4, PEAK_FP32_PRODUCT) if dtype == torch.float32 else (
+            " bf16", 2, PEAK_BF16)
         ms_f = timer(lambda: fa.fused_attention_packed(q, k, v, mask, mask, H), 10)
         # the backward alone: autograd calls the backward kernels on the saved forward
         ms_b = timer(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 10)
@@ -545,22 +575,23 @@ def check_self_attention(seed, b=None, n=None, timer=timed):
         lib_b = timer(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True), 10)
         nv = mask.sum(1).double()
         pairs = float((nv * nv).sum())
-        act = s * n * D * 4
-        bf, byf = attention_bound(pairs, 2, 4 * act + s * n + s * H * n * 4)
-        bb, byb = attention_bound(pairs, 5, 8 * act + s * n + s * H * n * 4)
+        act = s * n * D * size
+        bf, byf = attention_bound(pairs, 2, 4 * act + s * n + s * H * n * 4, peak)
+        bb, byb = attention_bound(pairs, 5, 8 * act + s * n + s * H * n * 4, peak)
         tol = "atol %g + rtol %g" % TOL[name]
-        rows["K5"] = dict(max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, library_ms=lib_f,
-                          bound_ms=bf, bound_by=byf, tol=tol)
-        rows["K7b self"] = dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, library_ms=lib_b,
-                                bound_ms=bb, bound_by=byb, tol=tol)
+        rows["K5" + suffix] = dict(max_abs_err=err_f, ms=ms_f, plain_ms=plain_f,
+                                   library_ms=lib_f, bound_ms=bf, bound_by=byf, tol=tol)
+        rows["K7b self" + suffix] = dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
+                                         library_ms=lib_b, bound_ms=bb, bound_by=byb, tol=tol)
     return rows
 
 
-def check_cross_attention(form, seed, b=None, n=None, timer=timed):
+def check_cross_attention(form, seed, b=None, n=None, timer=timed, bf16_rows=False):
     """K6b (stacked, N = 512, or n) or K6a (two arrays, 512 x 384) with the
     gradients of the shared projection, fp32 (timed by `timer`, the plain
     version by `timed`) and bf16; for the stacked form also the cross form
-    of K7b alone. `b` pairs (default: the training batch)."""
+    of K7b alone. `b` pairs (default: the training batch). With `bf16_rows`
+    the bf16 forms are timed too, as rows with the suffix " bf16"."""
     import torch
     import torch.nn.functional as F
 
@@ -596,8 +627,10 @@ def check_cross_attention(form, seed, b=None, n=None, timer=timed):
                     for i, (g, r) in enumerate(zip(grads, autograd_reference(fn, args, (g0, g1)))))
         log(f"[kernel] {tag} {name}: forward max abs err {err_f:.3g}, gradients (dqk, dv) "
             f"{err_b:.3g} (atol %g + rtol %g)" % TOL[name])
-        if dtype != torch.float32:
+        if dtype != torch.float32 and not bf16_rows:
             continue
+        suffix, size, peak = ("", 4, PEAK_FP32_PRODUCT) if dtype == torch.float32 else (
+            " bf16", 2, PEAK_BF16)
         ms_f = timer(lambda: kern(*args, *mk, H), 10)
         plain_f = timed(lambda: ref_fn(*args, *mk, H), 3, warmup=1)
         # yardstick: the two directions as scaled_dot_product_attention calls
@@ -612,12 +645,12 @@ def check_cross_attention(form, seed, b=None, n=None, timer=timed):
             lib_f = timer(lambda: (F.scaled_dot_product_attention(h0, h1, hv1, attn_mask=a1),
                                    F.scaled_dot_product_attention(h1, h0, hv0, attn_mask=a0)), 10)
         pairs = float((mask0.sum(1).double() * mask1.sum(1).double()).sum())
-        act0, act1 = b * m * D * 4, b * n * D * 4
+        act0, act1 = b * m * D * size, b * n * D * size
         # one similarity and two message products serve both directions
-        bf, byf = attention_bound(pairs, 3, 3 * (act0 + act1) + b * (m + n) * (1 + H * 4))
+        bf, byf = attention_bound(pairs, 3, 3 * (act0 + act1) + b * (m + n) * (1 + H * 4), peak)
         tol = "atol %g + rtol %g" % TOL[name]
-        rows[tag] = dict(max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, library_ms=lib_f,
-                         bound_ms=bf, bound_by=byf, tol=tol)
+        rows[tag + suffix] = dict(max_abs_err=err_f, ms=ms_f, plain_ms=plain_f,
+                                  library_ms=lib_f, bound_ms=bf, bound_by=byf, tol=tol)
         if form != "stacked":
             continue
         # K7b, cross form: one direction, queries of set 0 against keys of set 1
@@ -634,9 +667,9 @@ def check_cross_attention(form, seed, b=None, n=None, timer=timed):
         lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=a1)
         ldo = heads(g0)
         lib_b = timer(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True), 10)
-        bb, byb = attention_bound(pairs, 5, 8 * act0 + b * (m + n) + b * H * m * 4)
-        rows["K7b cross"] = dict(max_abs_err=err, ms=ms_b, plain_ms=plain_b, library_ms=lib_b,
-                                 bound_ms=bb, bound_by=byb, tol=tol)
+        bb, byb = attention_bound(pairs, 5, 8 * act0 + b * (m + n) + b * H * m * 4, peak)
+        rows["K7b cross" + suffix] = dict(max_abs_err=err, ms=ms_b, plain_ms=plain_b,
+                                          library_ms=lib_b, bound_ms=bb, bound_by=byb, tol=tol)
     return rows
 
 
@@ -851,7 +884,8 @@ def read_train_counts():
 
 
 def run_training():
-    """Phase 5; returns the launches per training step of each attention kernel."""
+    """Phase 5; returns the launches per training step of each attention
+    kernel, ms a step and peak MiB."""
     import torch
 
     from gluefactory_tpu_torch.train.step import TrainState, make_optimizer, make_train_step
@@ -1000,7 +1034,7 @@ def run_training():
     if not math.isfinite(float(losses["total"])) or float(losses["skipped_nonfinite"]) != 0:
         fail(f"training, m != n: {losses}")
     per_step["K6a"] = counts2["K6a"]
-    return per_step
+    return per_step, step_ms, peak / 2**20
 
 
 # ------------------------------ phase 3: the per-head attention and block 0
@@ -1015,18 +1049,19 @@ def heads_inputs(gen, b, *lengths):
     return xs, masks
 
 
-def check_heads_attention(seed):
-    """K7a at (8, 4, 1024, 64) fp32 through `ops.attention.masked_attention`,
-    forward and gradients (K7b on the per-head layout); Nq != Nk once."""
+def check_heads_attention(seed, b=HEADS_B, n=HEADS_N):
+    """K7a at (b, 4, n, 64) fp32 (default (8, 4, 1024, 64)) through
+    `ops.attention.masked_attention`, forward and gradients (K7b on the
+    per-head layout); Nq != Nk once. Returns the rows of K7a and of K7b
+    (one direction, the backward alone)."""
     import torch
     import torch.nn.functional as F
 
     from gluefactory_tpu_torch.ops import attention as ops
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    b, n = HEADS_B, HEADS_N
     err_f = err_b = 0.0
-    for nq, nk in ((n, 768), (n, n)):
+    for nq, nk in ((n, 3 * n // 4), (n, n)):
         (q, k, v, do), masks = heads_inputs(gen, b, nq, nk, nk, nq)
         mq = masks[nq]
         mk = masks[nk] if nk != nq else torch.rand(b, nk, generator=gen, device="cuda") > 0.2
@@ -1046,15 +1081,24 @@ def check_heads_attention(seed):
     ms = timed(lambda: ops.masked_attention(q, k, v, mq, mk), 10)
     ms_b = timed(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 10)
     plain_ms = timed(lambda: fn(q, k, v), 3, warmup=1)
+    plain_b = timed(lambda: ops.attention_backward_heads(q, k, v, mq, mk, do, DH**-0.5), 3,
+                    warmup=1)
     amask = mk[:, None, None, :]
     lib_ms = timed(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask), 10)
+    lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask)
+    lib_b = timed(lambda: torch.autograd.grad(lout, (lq, lk, lv), do, retain_graph=True), 10)
     pairs = float((mq.sum(1).double() * mk.sum(1).double()).sum())
     act = b * n * D * 4
     bms, by = attention_bound(pairs, 2, 4 * act + 2 * b * n + b * H * n * 4)
-    log(f"[kernel] K7b on the per-head layout, one direction (8, 4, 1024, 64) f32: "
+    bmb, byb = attention_bound(pairs, 5, 8 * act + 2 * b * n + b * H * n * 4)
+    tol = "atol %g + rtol %g" % TOL["float32"]
+    log(f"[kernel] K7b on the per-head layout, one direction ({b}, {H}, {n}, {DH}) f32: "
         f"{ms_b:.4f} ms")
-    return dict(max_abs_err=err_f, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                bound_by=by, tol="atol %g + rtol %g" % TOL["float32"])
+    return (dict(max_abs_err=err_f, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                 bound_by=by, tol=tol),
+            dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, library_ms=lib_b, bound_ms=bmb,
+                 bound_by=byb, tol=tol))
 
 
 def check_heads_cross(seed):
@@ -2250,14 +2294,14 @@ def timed_trainer(trainer):
     return steps, evals, restore
 
 
-def hold_first_step(trainer, build_plain, first, label):
-    """A LightGlue training configuration's first step on `first`: its total
-    and two gradients against the plain path's (`build_plain()`, a trainer
-    with `matcher.flash: False`) within 1e-4 and 1e-3 max|g| + 1e-7.
-    Returns the account to log."""
+def hold_first_step(trainer, build_plain, first, label, rtol=1e-4, gtol=1e-3,
+                    named=("matcher.self_Wqkv_w", "matcher.assign_proj_w"),
+                    plain_ctx=contextlib.nullcontext):
+    """A training configuration's first step on `first`: its total and two
+    gradients (`named`) against the plain path's (`build_plain()`, e.g. a
+    trainer with `matcher.flash: False`, run inside `plain_ctx()`) within
+    `rtol` and `gtol` max|g| + 1e-7. Returns the account to log."""
     import torch
-
-    named = ("matcher.self_Wqkv_w", "matcher.assign_proj_w")
 
     def loss_and_grads(tr):
         params = dict(tr.model.named_parameters())
@@ -2267,20 +2311,22 @@ def hold_first_step(trainer, build_plain, first, label):
 
     total, grads = loss_and_grads(trainer)
     plain = build_plain()
-    ref_total, ref_grads = loss_and_grads(plain)
+    with plain_ctx():
+        ref_total, ref_grads = loss_and_grads(plain)
     del plain
     torch.cuda.empty_cache()
-    if not abs(total - ref_total) <= 1e-4 * abs(ref_total):
-        fail(f"{label}: first total {total} against the plain path's {ref_total} (rtol 1e-4)")
+    if not abs(total - ref_total) <= rtol * abs(ref_total):
+        fail(f"{label}: first total {total} against the plain path's {ref_total} (rtol {rtol:g})")
     worst = []
     for key, g, r in zip(named, grads, ref_grads):
         diff, top = float((g - r).abs().max()), float(r.abs().max())
-        if not (top > 0 and diff <= 1e-3 * top + 1e-7):
+        if not (top > 0 and diff <= gtol * top + 1e-7):
             fail(f"{label}: gradient of {key} {diff:.3g} from the plain path's "
-                 f"(max |g| {top:.3g})")
-        worst.append(f"{key} {diff:.3g} (max |g| {top:.3g})")
-    return (f"first total {total:.6f}, plain path {ref_total:.6f} (rtol 1e-4); gradients "
-            + "; ".join(worst) + " (bar 1e-3 max|g| + 1e-7)")
+                 f"(max |g| {top:.3g}; bar {gtol:g} max|g|)")
+        worst.append(f"{key} {diff:.3g} (max |g| {top:.3g}, {diff / top:.3g} of it)")
+    return (f"first total {total:.6f}, plain path {ref_total:.6f} (rel "
+            f"{abs(total - ref_total) / abs(ref_total):.3g}, bar {rtol:g}); gradients "
+            + "; ".join(worst) + f" (bar {gtol:g} max|g| + 1e-7)")
 
 
 def check_mp_training(work):
@@ -2616,7 +2662,7 @@ def run_mp_slice():
 # ----------------------------------------------------------------- phase 12
 S1_CONF = "superpoint-open_synthetic_pretrain"  # stage 1: the detector on SyntheticShapes
 S2_CONF = "superpoint-open-trained+lightglue_homography"  # stage 2: LightGlue on top
-S1_EPOCHS, S1_STEPS, S1_VAL = 2, 8, 16  # epochs of steps of the configuration's 8 pairs
+S1_EPOCHS, S1_STEPS, S1_VAL = 2, 4, 16  # epochs of steps of the configuration's 8 pairs
 # the heads' last BatchNorm scales, held card against CPU at 1e-3 max|g|; the trunk's first
 # conv and the detector's 3 x 3 conv, whose fp32 gradients are 0.3-2.5% of max|g| off
 # float64 on either device (sums over 1.2M positions through batch-mode BatchNorms), held
@@ -2929,13 +2975,421 @@ def run_hermetic_loop():
                                                                   "K7b cross")}
 
 
+# ----------------------------------------------------------------- phase 13
+# twice the JAX package's own bf16-to-fp32 gap at this width on the CPU
+# (scripts/torch_mp_gap.py: LightGlue 9 x 256 with the committed weights, 512
+# keypoints): a pair's total up to 2.2e-3 relative, the two gradients held
+# here up to 7.1% of their max|g|
+MP_GAP = (4.4e-3, 0.142)
+# the bf16 kernels against the bf16 plain path on the card: measured 2.7e-5
+# relative and 0.39% / 1.65% of max|g| (H100 80GB HBM3, 700 W)
+MP_PLAIN = (1e-4, 0.05)
+SG_NAMED = ("matcher.gnn.0.q.weight", "matcher.final_proj.weight")
+EXT_NAMED = ("extractor.blocks.0.conv.weight", "extractor.blocks.9.conv.weight")
+DDP_STEPS = 2
+# the parameters of two processes against one after DDP_STEPS steps at lr
+# 1e-4: measured 2.0e-5 (3.2e-5 where a gradient is rounding noise). The JAX
+# package's 1e-5 (tests/test_parallel.py:346) holds for its one-process run on
+# the same two-device mesh; here the halves' sums differ from the whole's (the
+# frozen extractor's cuDNN convolutions at batch 16 against 32 among them), and
+# Adam's step, lr m / sqrt(v), turns a gradient's last bits into up to lr
+# where the gradient is small (H100 80GB HBM3, 700 W)
+DDP_ATOL = 5e-5
+
+
+def train_conf(**over):
+    """The homography training configuration at its width (512 keypoints,
+    LightGlue 9 x 256 checkpointed) with `over` merged into its model."""
+    from gluefactory_tpu_torch.utils.config import load_conf, merge
+
+    return merge(load_conf(TRAIN_CONF), {"model": over})
+
+
+def make_trainer(conf, device="cuda"):
+    """A trainer of `conf` with the committed weights where they fit (the
+    extractor, and LightGlue when it is the matcher)."""
+    from gluefactory_tpu_torch.train.trainer import Trainer, graft_state
+    from gluefactory_tpu_torch.weights import load_hermetic
+
+    trainer = Trainer(conf, device=device)
+    graft_state(trainer.model, load_hermetic(device=trainer.device))
+    return trainer
+
+
+def step_counts():
+    """Launches of the training kernels: K5, K6b, K7b (self and cross form),
+    and the per-head K7a and K7b."""
+    from gluefactory_tpu_torch.ops import fused_attention as fa
+
+    counts = read_train_counts()
+    counts["K7a"] = fa.fused_attention.launches
+    return counts
+
+
+def reset_step_counts():
+    from gluefactory_tpu_torch.ops import fused_attention as fa
+
+    reset_train_counts()
+    fa.fused_attention.launches = 0
+
+
+def timed_steps(trainer, batches, steps):
+    """`steps` steps on `batches` (cycled) after one warm-up: (ms a step by
+    the host clock around synchronised steps, launches of the timed steps,
+    peak MiB, the losses of every step)."""
+    import torch
+
+    history = trainer.train_steps(batches[:1], steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_step_counts()
+    t0 = time.perf_counter()
+    history += trainer.train_steps([batches[i % len(batches)] for i in range(steps)])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = step_counts()
+    for i, losses in enumerate(history):
+        if not all(math.isfinite(v) for v in losses.values()) or losses["skipped_nonfinite"]:
+            fail(f"step {i}: {losses}")
+    return ms, counts, torch.cuda.max_memory_allocated() / 2**20, history
+
+
+def expect_counts(counts, steps, label, **per_step):
+    want = {k: 0 for k in counts}
+    want.update({k.replace("_", " "): v * steps for k, v in per_step.items()})
+    if counts != want:
+        fail(f"{label}: expected {want} launches in {steps} steps, got {counts}")
+
+
+def check_mp_step(batches, fp32_total):
+    """Phase 13a: `matcher.mp: true` at the configuration's width."""
+    import torch
+
+    trainer = make_trainer(train_conf(matcher={"mp": True}))
+    if not trainer.model.matcher.conf.mp:
+        fail("mp training: the matcher is not in bf16")
+    with torch.no_grad():
+        dt = trainer.model(batches[0])["ref_descriptors0"].dtype
+    if dt != torch.bfloat16:
+        fail(f"mp training: the layers run in {dt}")
+    first = hold_first_step(trainer, lambda: make_trainer(train_conf(
+        matcher={"mp": True, "flash": False})), batches[0], "mp training", *MP_PLAIN)
+    log(f"[train13a] against the bf16 plain path (flash: False) on the card: {first}")
+    # against the fp32 step of phase 5 on the same batch (the kernels both)
+    ref = make_trainer(train_conf())
+    vs32 = hold_first_step(trainer, lambda: ref, batches[0], "mp against fp32", *MP_GAP)
+    del ref
+    log(f"[train13a] against the fp32 step (phase 5's configuration): {vs32} (bars: twice "
+        "the JAX package's own bf16-to-fp32 gap)")
+    ms, counts, peak, history = timed_steps(trainer, batches, 3)
+    expect_counts(counts, 3, "mp training", K5=18, K6b=18, K7b_self=9, K7b_cross=18)
+    log(f"[train13a] {ms:.2f} ms a step (phase 5 fp32: {fp32_total[0]:.2f}), peak {peak:.0f} "
+        f"MiB (phase 5: {fp32_total[1]:.0f}); launches a step {counts['K5'] // 3} K5 + "
+        f"{counts['K6b'] // 3} K6b + {(counts['K7b self'] + counts['K7b cross']) // 3} K7b, "
+        "all bf16; losses total " + " ".join(f"{x['total']:.4f}" for x in history))
+    return {k: v // 3 for k, v in counts.items()}, ms, peak
+
+
+def extractor_vjp(ext, views, kpts, g_desc, names):
+    """Gradients of sum <g_desc, descriptors> over the extractor's `names`
+    parameters, the descriptors sampled at the given keypoints (no
+    selection), in the extractor's own dtype."""
+    import torch
+
+    from gluefactory_tpu_torch.models.extractors.superpoint_open import sample_descriptors
+
+    params = dict(ext.named_parameters())
+    total = 0
+    for image, kp, g in zip(views, kpts, g_desc):
+        _, dense = ext._heads(image.permute(0, 3, 1, 2).to(ext.blocks[0].conv.weight.dtype),
+                              False)
+        desc = sample_descriptors(kp - 0.5, dense.permute(0, 2, 3, 1), ext.stride)
+        total = total + (desc.double() * g.double()).sum()
+    return torch.autograd.grad(total, [params[k.split(".", 1)[1]] for k in names])
+
+
+def check_trainable_extractor(batches):
+    """Phase 13b: `extractor.trainable: true` at the configuration's width."""
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+
+    try:
+        get_model("two_view_pipeline")(train_conf(extractor={
+            "trainable": True, "fused_block0": True})["model"], device="cuda")
+        fail("a trainable extractor with fused_block0: True did not raise")
+    except ValueError as e:
+        log(f"[train13b] fused_block0: True with a trainable extractor raises: {e}")
+
+    # b2, fp32 extractor: its first and last conv gradients against float64
+    trainer = make_trainer(train_conf(extractor={"trainable": True, "dtype": None}))
+    model = trainer.model
+    b2 = {v: ({k: t[:2] for k, t in batches[0][v].items()} if isinstance(batches[0][v], dict)
+              else batches[0][v][:2]) for v in batches[0]}
+    params = dict(model.named_parameters())
+    pred = model(b2)
+    losses, _ = model.loss(pred, b2)
+    descs = [pred["descriptors0"], pred["descriptors1"]]
+    *g_desc, g0, g9 = torch.autograd.grad(losses["total"].mean(),
+                                          descs + [params[k] for k in EXT_NAMED])
+    views = [b2["view0"]["image"], b2["view1"]["image"]]
+    kpts = [pred["keypoints0"], pred["keypoints1"]]
+    mine = extractor_vjp(model.extractor, views, kpts, g_desc, EXT_NAMED)
+    exact_ext = get_model("superpoint_open")(
+        {**model.extractor.conf, "trainable": True}, device="cuda").double()
+    exact_ext.load_state_dict(model.extractor.state_dict())
+    exact = extractor_vjp(exact_ext, [v.double() for v in views], kpts, g_desc, EXT_NAMED)
+    del exact_ext
+    worst = []
+    for key, g, m, x in zip(EXT_NAMED, (g0, g9), mine, exact):
+        top = float(x.abs().max())
+        e_path = float((g.double() - m).abs().max()) / top
+        e_exact = float((g.double() - x).abs().max()) / top
+        if not (top > 0 and e_path <= 1e-4 and e_exact <= 0.05):
+            fail(f"trainable extractor: gradient of {key}: {e_path:.3g} max|g| from the "
+                 f"sampled-descriptor VJP (bar 1e-4), {e_exact:.3g} from float64 (bar 0.05)")
+        worst.append(f"{key} {e_exact:.3g} of max|g| {top:.3g} off float64 (bar 0.05; the "
+                     f"pipeline's against its own VJP {e_path:.3g})")
+    log(f"[train13b] b2, fp32 extractor: " + "; ".join(worst))
+    del trainer, model, pred, losses
+    torch.cuda.empty_cache()
+
+    trainer = make_trainer(train_conf(extractor={"trainable": True}))
+    ext = trainer.model.extractor
+    if not any(k.startswith("extractor.") for k in trainer.state.params) or \
+            ext.conf.fused_block0 not in (False, "auto"):
+        fail("trainable extractor: its parameters are not in the optimizer")
+    before = {k: v.clone() for k, v in ext.state_dict().items()}
+    ms, counts, peak, history = timed_steps(trainer, batches, 2)
+    expect_counts(counts, 2, "trainable extractor", K5=18, K6b=18, K7b_self=9, K7b_cross=18)
+    after = ext.state_dict()
+    stats = [k for k in before if k.endswith(("bn_mean", "bn_var"))]
+    moved = [k for k in before if k not in stats and torch.equal(before[k], after[k])
+             and not k.startswith(("blocks.10.", "blocks.11."))]  # the detector head: no gradient
+    if moved or any(not torch.equal(before[k], after[k]) for k in stats):
+        fail(f"trainable extractor: unmoved parameters {moved[:4]} or moved statistics")
+    log(f"[train13b] {ms:.2f} ms a step, peak {peak:.0f} MiB, extractor ({ext.conf.dtype}) "
+        f"and matcher trained, running statistics unchanged; losses total "
+        + " ".join(f"{x['total']:.4f}" for x in history))
+    return ms, peak
+
+
+def check_superglue_training(batches):
+    """Phase 13c: SuperGlue (9 layer pairs, 256-D, 4 heads, 50 Sinkhorn
+    iterations) as the trained matcher of the configuration."""
+    import torch
+
+    from gluefactory_tpu_torch.models.matchers import superglue as sgmod
+    from gluefactory_tpu_torch.ops import attention as ops
+
+    conf = train_conf(matcher={"name": "superglue", "is_training": True})
+    trainer = make_trainer(conf)
+    sg = trainer.model.matcher
+    if (sg.conf.GNN_layers, sg.conf.descriptor_dim, sg.conf.num_heads,
+            sg.conf.sinkhorn_iterations) != (9, D, H, 50):
+        fail("SuperGlue training is not at 9 layer pairs x 256, 4 heads, 50 iterations")
+
+    @contextlib.contextmanager
+    def plain():
+        saved = sgmod.masked_attention
+        sgmod.masked_attention = lambda q, k_, v, mq, mk: ops.attention_heads(
+            q, k_, v, mq, mk, q.shape[-1] ** -0.5).to(q.dtype)
+        try:
+            yield
+        finally:
+            sgmod.masked_attention = saved
+
+    # the same model, its attention through the plain version
+    first = hold_first_step(trainer, lambda: trainer, batches[0], "SuperGlue training",
+                            named=SG_NAMED, plain_ctx=plain)
+    log(f"[train13c] against the plain attention on the card: {first}")
+    ms, counts, peak, history = timed_steps(trainer, batches[:1], 5)
+    expect_counts(counts, 5, "SuperGlue training", K7a=36, K7b_self=36)
+    totals = [x["total"] for x in history]
+    if not totals[-1] < totals[0]:
+        fail(f"SuperGlue training: the loss did not fall on one batch: {totals}")
+    mask = torch.ones(TRAIN_B, TRAIN_N, dtype=torch.bool, device="cuda")
+    scores = torch.randn(TRAIN_B, TRAIN_N, TRAIN_N, device="cuda", requires_grad=True)
+    sink = timed(lambda: torch.autograd.grad(sgmod.log_optimal_transport(
+        scores, sg.bin_score, 50, mask, mask).sum(), scores), 3)
+    log(f"[train13c] {ms:.2f} ms a step, peak {peak:.0f} MiB; launches a step "
+        f"{counts['K7a'] // 5} K7a + {counts['K7b self'] // 5} per-head K7b; Sinkhorn forward "
+        f"+ backward {sink:.2f} ms ({sink / ms:.3f} of the step); losses total on one batch "
+        + " ".join(f"{t:.4f}" for t in totals))
+    return {"K7a train": counts["K7a"] // 5, "K7b heads": counts["K7b self"] // 5}, ms, sink
+
+
+def ddp_run(batches, rank=0):
+    """The homography configuration for DDP_STEPS steps on `batches`
+    (global batches; this process takes its rank's slice), then the veto
+    with rank 1's slice poisoned: (state, each step's reduced gradients, ms
+    of the last step, all-reduce ms in it, the veto's losses, kept)."""
+    import torch
+
+    from gluefactory_tpu_torch.train import distributed, step as step_mod
+
+    world = distributed.world_size()
+    trainer = make_trainer(train_conf(), device="cuda:0")
+    per = TRAIN_B // world
+    mine = [{v: ({k: t[rank * per:(rank + 1) * per] for k, t in b[v].items()}
+                 if isinstance(b[v], dict) else b[v][rank * per:(rank + 1) * per]) for v in b}
+            for b in batches]
+    opt, grads, reduce_ms = trainer.state.optimizer, {}, []
+    update, reduce = opt.update, step_mod._all_reduce
+
+    def record(gs):
+        grads.update({f"{opt.count}/{k}": g.cpu() for k, g in zip(opt.names, gs)})
+        update(gs)
+
+    def timed_reduce(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(*args)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    opt.update, step_mod._all_reduce = record, timed_reduce
+    try:
+        history = []
+        for batch in mine[:DDP_STEPS]:  # the last step is timed: the first loads, tunes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            history += trainer.train_steps([batch])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        state = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+        step_grads = dict(grads)  # the steps' own, not the veto's step below
+        poisoned = mine[DDP_STEPS]
+        if rank == 1:
+            poisoned["view0"]["image"][0] = float("nan")
+        before = [v.clone() for v in trainer.model.state_dict().values()]
+        veto = trainer.train_steps([poisoned])[0]
+        kept = all(torch.equal(a, z) for a, z in zip(before, trainer.model.state_dict().values()))
+    finally:
+        step_mod._all_reduce = reduce
+    if any(x["skipped_nonfinite"] for x in history):
+        fail(f"two processes, rank {rank}: a step was skipped: {history}")
+    return state, step_grads, ms, reduce_ms[DDP_STEPS - 1] if reduce_ms else 0.0, veto, kept
+
+
+def ddp_rank_main(rank, port, work):
+    """One rank of phase 13d, started by `check_two_processes`."""
+    import os
+
+    import torch
+
+    from gluefactory_tpu_torch.train import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    # one card: both ranks on cuda:0, so gloo, named (NCCL takes one rank a device)
+    distributed.init_distributed("gloo", "cuda:0")
+    try:
+        batches = torch.load(Path(work) / "batches.pt", map_location="cuda:0")
+        state, grads, ms, red, veto, kept = ddp_run(batches, rank)
+        torch.save({"state": state, "grads": grads, "ms": ms, "reduce_ms": red,
+                    "veto": veto, "kept": kept}, Path(work) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def check_two_processes(batches):
+    """Phase 13d: the homography configuration on two processes on the one
+    card (gloo), 16 pairs a rank, against one process at 32 on the same
+    global batches: each step's reduced gradients within 1e-4 of max|g|, the
+    parameters within DDP_ATOL; a NaN slice on rank 1 alone vetoes both
+    ranks' step."""
+    import shutil
+    import socket
+
+    import torch
+
+    work = ROOT / "outputs" / "chip_smoke_ddp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.save([{v: ({k: t.cpu() for k, t in b[v].items()} if isinstance(b[v], dict)
+                     else b[v].cpu()) for v in b} for b in batches], work / "batches.pt")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--ddp-rank",
+                               str(r), "--ddp-port", str(port), "--ddp-dir", str(work)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        fail("two processes: a rank failed:\n" + "\n".join(o[-3000:] for o in outs))
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(work / f"rank{r}.pt") for r in range(2)]
+    one, grads1, ms1, _, veto1, _ = ddp_run(batches)
+    shutil.rmtree(work, ignore_errors=True)
+    two, grads2 = ranks[0]["state"], ranks[0]["grads"]
+    if any(not torch.equal(ranks[1]["state"][k], v) for k, v in two.items()):
+        fail("two processes: the ranks' states differ")
+    top = max(float(g.abs().max()) for g in grads1.values())
+    gerr = max(float((grads2[k] - g).abs().max()) for k, g in grads1.items()) / top
+    perr = max(float((two[k].double() - v.double()).abs().max()) for k, v in one.items())
+    log(f"[train13d] two processes (gloo, one card, {TRAIN_B // 2} pairs a rank) against one "
+        f"at {TRAIN_B}, {DDP_STEPS} steps: the reduced gradients within {gerr:.3g} of max|g| "
+        f"(bar 1e-4), the parameters within {perr:.3g} (bar {DDP_ATOL:g})")
+    if not (gerr <= 1e-4 and perr <= DDP_ATOL):
+        fail("two processes disagree with one")
+    vetos = [(r["veto"]["skipped_nonfinite"], r["kept"]) for r in ranks]
+    if vetos != [(1.0, True), (1.0, True)] or veto1["skipped_nonfinite"] != 0.0:
+        fail(f"two processes: a NaN slice on rank 1 gave (skipped, kept) {vetos}; one "
+             f"process {veto1['skipped_nonfinite']}")
+    ms2, red = ranks[0]["ms"], ranks[0]["reduce_ms"]
+    log(f"[train13d] a NaN slice on rank 1 alone: both ranks skipped and kept their "
+        f"parameters bit for bit; ms a step with the all-reduce {ms2:.2f} (two processes "
+        f"sharing the card; one process at {TRAIN_B}: {ms1:.2f}), the all-reduce itself "
+        f"{red:.2f} ms (gloo through the host); phase {wall:.1f} s for the ranks")
+    return ms2, red
+
+
+def run_training_paths(fp32_ms, fp32_peak):
+    """Phase 13 on three batches of phase 5's shape; returns the launches a
+    step of the rows it adds."""
+    import torch
+
+    t_phase = time.perf_counter()
+    batches = [training_batch(40 + i, TRAIN_B, 480, 640) for i in range(3)]
+    counts, mp_ms, mp_peak = check_mp_step(batches, (fp32_ms, fp32_peak))
+    torch.cuda.empty_cache()
+    ext_ms, ext_peak = check_trainable_extractor(batches)
+    torch.cuda.empty_cache()
+    sg_counts, sg_ms, sink_ms = check_superglue_training(batches)
+    torch.cuda.empty_cache()
+    ddp_ms, reduce_ms = check_two_processes(batches)
+    log(f"[train13] ms a step at batch {TRAIN_B}: fp32 {fp32_ms:.2f} (phase 5), mp {mp_ms:.2f}, "
+        f"trainable extractor {ext_ms:.2f} (peak {ext_peak:.0f} MiB), SuperGlue {sg_ms:.2f}, "
+        f"two processes {ddp_ms:.2f} (all-reduce {reduce_ms:.2f}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"K5 bf16": counts["K5"], "K6b bf16": counts["K6b"],
+            "K7b self bf16": counts["K7b self"], "K7b cross bf16": counts["K7b cross"],
+            **sg_counts}
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     global TRAIN_B
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--train-batch", type=int, default=TRAIN_B,
                         help="pairs a training step takes (default %(default)s)")
-    TRAIN_B = parser.parse_args().train_batch
+    # one rank of phase 13d, started by the script itself
+    parser.add_argument("--ddp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--ddp-port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--ddp-dir", type=str, default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    TRAIN_B = args.train_batch
     t_start = time.perf_counter()
     try:
         import torch
@@ -2953,6 +3407,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ddp_rank is not None:
+        return ddp_rank_main(args.ddp_rank, args.ddp_port, args.ddp_dir)
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2968,6 +3424,7 @@ def main() -> int:
     build_report()
     check_tensor_cores()
 
+    log(f"[time] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     # 3. kernels against their plain versions at the main path's shapes
     src_blk = "gluefactory_tpu_torch/csrc/lightglue_block.cu"
     src_asg = "gluefactory_tpu_torch/csrc/log_assignment.cu"
@@ -3004,7 +3461,8 @@ def main() -> int:
     compact = check_assignment(1, 256, 256, seed=34)
     log(f"[kernel] K4 B=1 M=N=256 f32 (the adaptive HPatches run's compact width): max abs err "
         f"{compact['max_abs_err']:.3g}; {compact['ms']:.4f} ms")
-    att = {**check_self_attention(20), **check_cross_attention("stacked", 21),
+    att = {**check_self_attention(20, bf16_rows=True),
+           **check_cross_attention("stacked", 21, bf16_rows=True),
            **check_cross_attention("packed", 22)}
     s2, n5, n6 = 2 * TRAIN_B, TRAIN_N, TRAIN_N1
     att_rows = [
@@ -3013,6 +3471,14 @@ def main() -> int:
         ("K6a", f"K6a fused_cross_attention_packed B={TRAIN_B} M={n5} N={n6} f32", "691"),
         ("K7b self", f"K7b attention backward, self form ({s2}, {n5}, 256) f32", "222"),
         ("K7b cross", f"K7b attention backward, cross form B={TRAIN_B} {n5} x {n5} f32", "222"),
+        # the `mp: True` step's (phase 13a)
+        ("K5 bf16", f"K5 fused_attention_packed ({s2}, {n5}, 256) bf16, mp training", "383"),
+        ("K6b bf16", f"K6b fused_cross_attention_stacked ({s2}, {n5}, 256) bf16, mp training",
+         "744"),
+        ("K7b self bf16", f"K7b attention backward, self form ({s2}, {n5}, 256) bf16, mp "
+                          "training", "222"),
+        ("K7b cross bf16", f"K7b attention backward, cross form B={TRAIN_B} {n5} x {n5} bf16, "
+                           "mp training", "222"),
     ]
     for key, name, line in att_rows:
         kernels.append(dict(name=name, key=key, route="cuda", source=SRC_ATT,
@@ -3052,9 +3518,19 @@ def main() -> int:
         name="K8 block0_fused (8, 480, 640, 1) f32 -> (8, 240, 320, 64) bf16", key="K8",
         route="cuda", source="gluefactory_tpu_torch/csrc/block0_conv.cu", replaces=pal_conv,
         **check_block0(23)))
+    k7a, _ = check_heads_attention(24)
     kernels.append(dict(
         name=f"K7a fused_attention ({HEADS_B}, {H}, {HEADS_N}, {DH}) f32", key="K7a",
-        route="cuda", source=SRC_ATT, replaces=f"{PAL_ATT}:116", **check_heads_attention(24)))
+        route="cuda", source=SRC_ATT, replaces=f"{PAL_ATT}:116", **k7a))
+    # SuperGlue's training step (phase 13c): (32, 4, 512, 64), K7a and its backward
+    sg_fwd, sg_bwd = check_heads_attention(35, b=TRAIN_B, n=TRAIN_N)
+    kernels.append(dict(
+        name=f"K7b attention backward, per-head form ({TRAIN_B}, {H}, {TRAIN_N}, {DH}) f32, "
+             "SuperGlue training", key="K7b heads", route="cuda", source=SRC_ATT,
+        replaces=f"{PAL_ATT}:222", **sg_bwd))
+    kernels.append(dict(
+        name=f"K7a fused_attention ({TRAIN_B}, {H}, {TRAIN_N}, {DH}) f32, SuperGlue training",
+        key="K7a train", route="cuda", source=SRC_ATT, replaces=f"{PAL_ATT}:116", **sg_fwd))
     k7c_row, k7c_launches = check_heads_cross(25)
     kernels.append(dict(
         name=f"K7c fused_cross_attention ({HEADS_B}, {H}, {HEADS_N}, {DH}) x same f32", key="K7c",
@@ -3063,6 +3539,7 @@ def main() -> int:
         log(f"[kernel] {k['name']}: matches its plain version within {k['tol']} "
             f"(max abs err {k['max_abs_err']:.3g})")
 
+    log(f"[time] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     # 4. end to end: the main path, 480x640 / 1024 keypoints / batch 8
     pipe, data, out, hs, counts = run_main_path(8, 480, 640, 1024, seed=1, label="main b8")
     set_launches(kernels, 1024, counts)
@@ -3095,13 +3572,15 @@ def main() -> int:
     del pipe, data, out, ref, pipe_md, data_md, out_md
     torch.cuda.empty_cache()
 
+    log(f"[time] phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     # 5. training
-    per_step = run_training()
+    per_step, fp32_ms, fp32_peak = run_training()
     step_ms = sum(k["ms"] * per_step[k["key"]] for k in kernels
                   if k.get("key") in per_step and k["key"] != "K6a")
     log(f"[train] attention kernels per step (kernel_ms x launches, m == n): {step_ms:.2f} ms")
     torch.cuda.empty_cache()
 
+    log(f"[time] phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     # 6. adaptive serving; 7. SuperGlue
     per_step["K8"] = run_adaptive_serving()
     torch.cuda.empty_cache()
@@ -3112,24 +3591,34 @@ def main() -> int:
         f"{k7a_ms * per_step['K7a'] / sg_ms:.3f} of the forward")
     torch.cuda.empty_cache()
 
+    log(f"[time] phase 8 starts at {time.perf_counter() - t_start:.1f} s")
     # 8. the HPatches evaluation slice
     per_step.update(run_hpatches_eval())
     torch.cuda.empty_cache()
 
+    log(f"[time] phase 9 starts at {time.perf_counter() - t_start:.1f} s")
     # 9. the training entry point
     run_training_entry()
     torch.cuda.empty_cache()
 
+    log(f"[time] phase 10 starts at {time.perf_counter() - t_start:.1f} s")
     # 10. depth-supervised fine-tuning and the synthetic_pose benchmark
     per_step.update(run_depth_slice())
     torch.cuda.empty_cache()
 
+    log(f"[time] phase 11 starts at {time.perf_counter() - t_start:.1f} s")
     # 11. the multispectral slice
     run_mp_slice()
     torch.cuda.empty_cache()
 
+    log(f"[time] phase 12 starts at {time.perf_counter() - t_start:.1f} s")
     # 12. the hermetic loop: stage 1 -> stage 2 -> stage 3
     per_step.update(run_hermetic_loop())
+    torch.cuda.empty_cache()
+
+    log(f"[time] phase 13 starts at {time.perf_counter() - t_start:.1f} s")
+    # 13. the training paths: mp, a trainable extractor, SuperGlue, two processes
+    per_step.update(run_training_paths(fp32_ms, fp32_peak))
     torch.cuda.empty_cache()
     for k in kernels:
         if "key" in k:

@@ -9,8 +9,11 @@ thread pool, `num_workers` of them in flight across batch boundaries (the
 warps, filters and renderers release the GIL). The
 train split is shuffled by `RandomState(seed + epoch)`, and a split with
 `set_epoch` is told the epoch before the first sample. Incomplete last
-batches are dropped. Sharding across processes waits for DDP (ROADMAP
-Queue 1 item 2).
+batches are dropped. Across processes (`shard=(rank, world)`) rank r loads
+only its slice `[r B/W, (r+1) B/W)` of each global batch of the one-process
+order, so the ranks together see the one-process samples and each renders
+1/W of them; a global batch that W does not divide raises, as the JAX
+package's `shard_batch(strict=True)` does.
 """
 
 from __future__ import annotations
@@ -134,14 +137,25 @@ class BaseDataset:
             return int(self.conf.batch_size)
         return int(self.conf.get(f"{split}_batch_size"))
 
-    def get_data_loader(self, split: str, shuffle: bool | None = None,
-                        epoch: int = 0) -> Iterator[dict]:
+    def _shard_size(self, split: str, shard: tuple) -> int:
+        """The pairs of a global batch that one of `shard[1]` ranks loads."""
+        bs, world = self.batch_size(split), shard[1]
+        if bs % world:
+            raise ValueError(f"the {split} batch size {bs} is not divisible by the {world} "
+                             "processes; change the batch size or the process count")
+        return bs // world
+
+    def get_data_loader(self, split: str, shuffle: bool | None = None, epoch: int = 0,
+                        shard: tuple = (0, 1)) -> Iterator[dict]:
         """Collated batches of a split; `shuffle` defaults to True on the
-        train split (`shuffle_training`)."""
+        train split (`shuffle_training`); `shard=(rank, world)` gives rank's
+        slice of each global batch."""
         dataset = self.get_dataset(split)
         if hasattr(dataset, "set_epoch"):
             dataset.set_epoch(epoch)
         bs = self.batch_size(split)
+        per = self._shard_size(split, shard)
+        first = shard[0] * per
         if len(dataset) < bs:
             raise ValueError(f"Split {split!r} has {len(dataset)} samples < batch size {bs}")
         if shuffle is None:
@@ -152,36 +166,37 @@ class BaseDataset:
             order = np.arange(len(dataset))
             if shuffle:
                 np.random.RandomState(self.conf.seed + epoch).shuffle(order)
-            starts = range(0, len(order) - bs + 1, bs)
+            starts = range(first, len(order) - bs + 1 + first, bs)
             if num_workers > 0:
                 # samples are submitted ahead across batch boundaries, so that
                 # the workers stay busy at any batch size (one pair a batch in
                 # the evaluations)
-                ahead = -(-num_workers // bs)  # batches in flight beside the current one
+                ahead = -(-num_workers // per)  # batches in flight beside the current one
                 with ThreadPoolExecutor(num_workers) as pool:
                     pending = collections.deque()
                     for start in starts:
                         pending.append([pool.submit(dataset.__getitem__, int(i))
-                                        for i in order[start:start + bs]])
+                                        for i in order[start:start + per]])
                         if len(pending) > ahead:
                             yield collate([f.result() for f in pending.popleft()])
                     while pending:
                         yield collate([f.result() for f in pending.popleft()])
             else:
                 for start in starts:
-                    yield collate([dataset[int(i)] for i in order[start:start + bs]])
+                    yield collate([dataset[int(i)] for i in order[start:start + per]])
 
         return _Prefetch(make_batches, max(int(self.conf.prefetch), 1), dataset=dataset)
 
-    def get_overfit_loader(self, split: str, length: int = 100):
-        """One batch of the split at epoch 0, `length` times. (The JAX
-        package's version reads an undefined `epoch` here and raises
-        NameError on a dataset with `set_epoch`.)"""
+    def get_overfit_loader(self, split: str, length: int = 100, shard: tuple = (0, 1)):
+        """One batch of the split at epoch 0 (`shard`'s slice of it),
+        `length` times. (The JAX package's version reads an undefined
+        `epoch` here and raises NameError on a dataset with `set_epoch`.)"""
         dataset = self.get_dataset(split)
         if hasattr(dataset, "set_epoch"):
             dataset.set_epoch(0)
-        bs = self.batch_size(split)
-        batch = collate([dataset[i % len(dataset)] for i in range(bs)])
+        per = self._shard_size(split, shard)
+        batch = collate([dataset[i % len(dataset)]
+                         for i in range(shard[0] * per, (shard[0] + 1) * per)])
 
         def make_batches():
             for _ in range(length):

@@ -12,8 +12,12 @@ files; other image formats raise (there is no JPEG or PNG decoder without
 cv2 or PIL). Every draw of a sample comes from one `RandomState` seeded
 `seed + idx + 1_000_003 * (epoch + 1)` on the train split and `seed + idx`
 on the others, in the JAX order, so the port and the JAX package give the
-same samples. The cached-feature modes (`features.do`) are not ported
-(ROADMAP Queue 1 item 2); the training configuration does not use them.
+same samples. The in-memory feature modes (`features.do`) are not ported:
+the JAX package runs their extractor with no parameters
+(gluefactory_tpu/datasets/homographies.py:291), so only a parameter-free
+extractor serves there, and both configurations that use them are SIFT
+ones; they come with `sift_tpu` (ROADMAP Queue 1 item 4). The training
+configuration does not use them.
 """
 
 from __future__ import annotations
@@ -147,8 +151,8 @@ class HomographyDataset(BaseDataset):
     def _init(self, conf):
         if conf.features.do:
             raise NotImplementedError(
-                "features.do (cached-feature and per-view extraction modes) is not ported yet "
-                "(ROADMAP Queue 1 item 2)")
+                "features.do (in-memory and per-view extraction with a parameter-free "
+                "extractor) is not ported yet; it comes with sift_tpu (ROADMAP Queue 1 item 4)")
         self.photo_aug = augmentations[conf.photometric.name]()
         if conf.synthetic.do:
             pool = int(conf.synthetic.pool)

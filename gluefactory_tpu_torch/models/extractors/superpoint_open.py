@@ -18,7 +18,13 @@ gives logits (B, Hc, Wc, 65) and unit dense descriptors (B, Hc, Wc, D), and
 with `image2` in the batch (a warped pair) both views go through the trunk
 as one batch and come out as logits / logits2, dense_descriptors /
 dense_descriptors2. `loss` is `multipoint.utils.losses.superpoint_loss`.
-Without `is_training` nothing records a gradient.
+
+With `trainable` (a two-view pipeline's `extractor.trainable`, the
+extractor fine-tuned with the matcher) the inference forward records
+gradients and the parameters require them; the BatchNorms keep their
+running statistics. K8 has no backward, so a trainable extractor never
+takes it: `fused_block0: True` raises, and "auto" takes the cuDNN block 0.
+With neither `is_training` nor `trainable` nothing records a gradient.
 """
 
 from __future__ import annotations
@@ -135,9 +141,10 @@ class SuperPoint(BaseModel):
         "is_training": False,
         "dtype": "bfloat16",  # conv compute dtype; heads renormalise in fp32
         # block 0 as one kernel (ops/block0_conv.py): True, False or "auto"
-        # (on when the module is on a CUDA device); H and W must then be even.
-        # Slower than the cuDNN trunk today (PERF.md), hence off by default.
+        # (on when the module is on a CUDA device and not trainable); H and W
+        # must then be even. Off by default, as in the JAX package.
         "fused_block0": False,
+        "trainable": False,  # the inference forward records gradients
     }
     required_data_keys = ["image"]
 
@@ -146,6 +153,10 @@ class SuperPoint(BaseModel):
         conf = self.conf
         if conf.fused_block0 not in (True, False, "auto"):
             raise ValueError(f"fused_block0 must be True, False or 'auto', got {conf.fused_block0!r}")
+        if conf.trainable and conf.fused_block0 is True:
+            raise ValueError(
+                "fused_block0: True with a trainable extractor: the fused block 0 (K8) has no "
+                "backward; use fused_block0 'auto' or False, which take the cuDNN block 0")
         ch = list(conf.channels)
         blocks, cin = [], 1
         for c in ch[:-1]:
@@ -159,14 +170,14 @@ class SuperPoint(BaseModel):
         self.blocks = nn.ModuleList(blocks)
         self.stride = stride
         # an inference extractor (a frozen pipeline component) trains nothing
-        self.requires_grad_(bool(conf.is_training))
+        self.requires_grad_(bool(conf.is_training or conf.trainable))
         self.to(self.device)
 
     def forward(self, data: dict) -> dict:
         self.check_required_keys(data)
         if self.conf.is_training:
             return self._forward_train(data)
-        with torch.no_grad():
+        with torch.set_grad_enabled(torch.is_grad_enabled() and self.conf.trainable):
             return self._forward_infer(data)
 
     def _heads(self, x: torch.Tensor, is_training: bool, first: int = 0):
@@ -208,7 +219,7 @@ class SuperPoint(BaseModel):
         dtype = _DTYPES[conf.get("dtype")]
         n_trunk = 2 * (len(conf.channels) - 1)
         fused = conf.fused_block0 is True or (
-            conf.fused_block0 == "auto" and image.device.type == "cuda")
+            conf.fused_block0 == "auto" and image.device.type == "cuda" and not conf.trainable)
         # the kernel takes one input channel, 64 channels and a pooled block;
         # anything else goes through the plain trunk. It raises on an odd side.
         if fused and image.shape[-1] == 1 and conf.channels[0] == 64 and n_trunk > 2:

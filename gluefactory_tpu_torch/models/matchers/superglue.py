@@ -1,4 +1,4 @@
-"""SuperGlue matcher, inference (counterpart of
+"""SuperGlue matcher, inference and training (counterpart of
 gluefactory_tpu/models/matchers/superglue.py).
 
 Keypoint encoder MLP (position + score -> descriptor space), attentional
@@ -11,8 +11,18 @@ The attention runs on the per-head (B, H, N, Dh) layout through
 `ops.attention.masked_attention`: the CUDA kernel on the card (four launches
 a layer pair: two self, two cross), the plain version on the CPU. Everything
 else is torch calls in fp32. `weights.superglue_from_flax` maps the JAX
-model's parameter tree onto this module's state dict. `loss` is not ported
-yet (the base class raises).
+model's parameter tree (or a tree of its gradients) onto this module's
+state dict.
+
+With `is_training` the forward is differentiable and the parameters train:
+the attention's backward is the backward kernel on the per-head layout (one
+launch an attention call), and the 50 Sinkhorn iterations are torch calls
+that autograd differentiates (the JAX package has no kernel for them).
+`loss` is the NLL of the log assignment against the ground-truth assignment
+(`models/utils/losses.nll_loss`, `loss.nll_balancing`), with the matcher
+metrics when not training. (The JAX model calls its XLA attention here,
+with a comment that the Pallas kernel lacks a VJP; its kernel has had one
+since `fused_attention`'s `custom_vjp`, and the port keeps its kernel.)
 """
 
 from __future__ import annotations
@@ -24,6 +34,8 @@ from torch import nn
 from ...ops.assignment import filter_matches
 from ...ops.attention import masked_attention
 from ..base_model import BaseModel
+from ..utils.losses import nll_loss
+from ..utils.metrics import matcher_metrics
 
 _NEG_INF = -1e9
 
@@ -144,8 +156,6 @@ class SuperGlue(BaseModel):
     def __init__(self, conf=None, device="cuda"):
         super().__init__(conf, device)
         conf = self.conf
-        if conf.is_training:
-            raise NotImplementedError("SuperGlue training is not ported yet (ROADMAP Queue 1 item 2)")
         d = conf.descriptor_dim
         self.kenc = _MLP(3, (*conf.keypoint_encoder, d), conf.ln)
         # layer 2i is the self step of pair i, layer 2i + 1 its cross step
@@ -161,11 +171,16 @@ class SuperGlue(BaseModel):
                     mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen)
                                      * mod.in_features**-0.5)
                     mod.bias.zero_()
-        self.requires_grad_(False)
+        self.requires_grad_(bool(conf.is_training))
         self.to(self.device)
 
-    @torch.no_grad()
     def forward(self, data: dict) -> dict:
+        if self.conf.is_training:
+            return self._forward(data)
+        with torch.no_grad():
+            return self._forward(data)
+
+    def _forward(self, data: dict) -> dict:
         self.check_required_keys(data)
         conf = self.conf
         kpts0, kpts1 = data["keypoints0"], data["keypoints1"]
@@ -201,5 +216,14 @@ class SuperGlue(BaseModel):
             "matching_scores1": ms1,
             "log_assignment": log_assignment,
         }
+
+    def loss(self, pred: dict, data: dict):
+        """(losses, metrics), dicts of (B,) tensors: the NLL of the log
+        assignment (`total`) and its components; the matcher metrics when
+        not training."""
+        nll, _, metrics_nll = nll_loss(pred, data, nll_balancing=self.conf.loss.nll_balancing)
+        metrics = {} if self.conf.is_training else matcher_metrics(pred, data)
+        return {"total": nll, **metrics_nll}, metrics
+
 
 __main_model__ = SuperGlue

@@ -10,6 +10,7 @@ those `weights.params_from_jax` gives a flax leaf: kernel -> weight, scale
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -55,13 +56,23 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     unbiased correction. Otherwise it normalises with the running statistics.
     y = (x - mean) * (rsqrt(var + eps) * scale) + bias, flax's order. A caller
     that must not keep the update (a vetoed step, validation) restores the
-    buffers (`train/step.py`)."""
+    buffers (`train/step.py`). Across processes (a default process group of
+    W > 1 ranks, each holding its slice of the global batch) E[x] and E[x^2]
+    are the means over the ranks of the local ones, by an autograd-aware
+    all-reduce: the global-batch moments of the JAX package's sharded jit,
+    and every rank's running statistics the same. Every rank must then call
+    it, as every rank runs the step."""
     shape = (1, -1) + (1,) * (x.dim() - 2)
     if is_training:
         dims = [0] + list(range(2, x.dim()))
         xf = x.float()
-        mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        mean, mean_sq = xf.mean(dims), (xf * xf).mean(dims)
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            from torch.distributed.nn.functional import all_reduce
+
+            moments = all_reduce(torch.stack([mean, mean_sq])) / dist.get_world_size()
+            mean, mean_sq = moments.unbind()
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             running_mean.copy_(momentum * running_mean + (1 - momentum) * mean.detach())
             running_var.copy_(momentum * running_var + (1 - momentum) * var.detach())

@@ -1,6 +1,6 @@
 """The training step (counterpart of gluefactory_tpu/train/step.py):
 forward, loss, backward, the non-finite veto, gradient clipping and the
-Adam update, for one device.
+Adam update, on one device, or on one device a process across processes.
 
 The optimizer repeats the JAX package's optax chain exactly:
 `clip_by_global_norm(grad_clip)` scales the gradients by max_norm / norm
@@ -25,6 +25,16 @@ With `grad_stats`, the losses also hold `grad/norm`, the global norm of the
 gradients before the clip (0 on a vetoed step, whose gradients the JAX step
 zeroes), and `grad/norm/<module>` for each top-level module with
 parameters (0 for a frozen one).
+
+Across processes (a default process group of more than one rank when the
+step is built, `train/distributed.py`) each rank runs its slice of the
+global batch. The gradients are taken by
+`torch.autograd.grad`, under which DDP's reducer hooks do not fire, so the
+step makes the counterpart of the JAX program's psum itself: one
+all-reduce a step of the flattened gradients, the loss and the logged
+losses, divided by the world size. That gives the gradient of the
+global-batch mean loss, the global means in the losses, and a veto that
+reads the reduced values, so that every rank skips together.
 """
 
 from __future__ import annotations
@@ -128,8 +138,12 @@ def make_train_step(model, mark: Optional[Callable[[str], None]] = None,
     0-d tensors on the model's device, `skipped_nonfinite` and, with
     `grad_stats`, the gradient norms. `mark(name)` is called after the
     "forward" (model and loss), the "backward" and the "optimizer" phase,
-    for timing."""
+    for timing. Across processes the step all-reduces over the default
+    process group (the module docstring)."""
+    from .distributed import world_size
+
     mark = mark or (lambda name: None)
+    distributed = world_size() > 1
     modules = sorted({module_of(k) for k, _ in model.named_parameters()})
     buffers = list(model.buffers())
 
@@ -142,11 +156,13 @@ def make_train_step(model, mark: Optional[Callable[[str], None]] = None,
         mark("forward")
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        out = {k: v.detach().float().mean() for k, v in losses.items()}
+        if distributed:
+            grads, loss, out = _all_reduce(grads, loss, out)
         mark("backward")
         finite = torch.stack([torch.isfinite(g).all() for g in grads]
                              + [torch.isfinite(loss)]).all()
         skipped = not bool(finite)  # the step's one host synchronisation
-        out = {k: v.detach().float().mean() for k, v in losses.items()}
         if grad_stats:
             out.update(_grad_norms(state.params, grads, modules, skipped, loss.device))
         if skipped:
@@ -159,6 +175,21 @@ def make_train_step(model, mark: Optional[Callable[[str], None]] = None,
         return state, out
 
     return train_step
+
+
+@torch.no_grad()
+def _all_reduce(grads: list, loss: torch.Tensor, out: dict):
+    """The means over the ranks of the gradients, the loss and the logged
+    losses, by one all-reduce of their concatenation."""
+    from .distributed import all_reduce_mean
+
+    parts = [g.reshape(-1) for g in grads] + [loss.detach().float().reshape(1)] + [
+        v.reshape(1) for v in out.values()]
+    flat = all_reduce_mean(torch.cat(parts))
+    pieces = flat.split([p.numel() for p in parts])
+    grads = [p.view_as(g) for p, g in zip(pieces, grads)]
+    values = pieces[len(grads) + 1:]
+    return grads, pieces[len(grads)][0], {k: v[0] for k, v in zip(out, values)}
 
 
 @torch.no_grad()

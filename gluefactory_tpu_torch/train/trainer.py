@@ -38,10 +38,20 @@ batches without the epoch loop. The model is any registered model with a
 SyntheticShapes, `configs/superpoint-open_synthetic_pretrain.json`), whose
 checkpoint a later experiment grafts into its `extractor` through
 `load_experiment` and `load_experiment_prefix`. `train.plot` (match figures) raises: the
-visualisation module is not ported (ROADMAP Queue 1 item 6). Multi-device
-training waits for DDP (ROADMAP Queue 1 item 2). The step has no
+visualisation module is not ported (ROADMAP Queue 1 item 6). The step has no
 randomness (no dropout, no augmentation on the device); model
 initialisation draws from the model's own seeded `torch.Generator`.
+
+Across processes (a default process group of W > 1 ranks, set up by
+`train.distributed.init_distributed` before the trainer) every rank runs
+this trainer on its own device: rank 0's parameters and buffers are
+broadcast after the model is built and again after `build`; each rank
+loads its slice of every global batch; the step all-reduces
+(`train/step.py`); validation gathers every rank's per-pair values in rank
+order, so its means, medians and PR curve are the one-process ones (a val
+batch that the ranks do not divide is evaluated whole on every rank, as
+the JAX package replicates it); only rank 0 writes the configuration, the
+summaries, the checkpoints and runs the benchmarks.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ from ..utils.summary import ExperimentWriter
 from ..utils.tensor import batch_to_device
 from ..utils.tools import AverageMetric, MedianMetric, PRMetric, set_seed
 from ..weights import load_hermetic
+from . import distributed
 from .step import TrainState, make_optimizer, make_train_step, restore_buffers
 
 logger = logging.getLogger(__name__)
@@ -134,11 +145,14 @@ class Trainer:
                 "ported yet (ROADMAP Queue 1 item 6)")
         self.experiment = experiment
         self.output_dir = Path(output_dir) if output_dir else None
+        self.rank, self.world = distributed.rank(), distributed.world_size()
+        self.is_main = self.rank == 0
         set_seed(self.conf.train.seed)
         model_conf = self.conf.model
         self.model = get_model(model_conf.name)(model_conf, device=device)
         self.device = self.model.device
         self.model.train()
+        self._sync_state()
         params = {k: p for k, p in self.model.named_parameters() if p.requires_grad}
         self.state = TrainState(
             step=0, params=params, optimizer=make_optimizer(self.conf.train, params))
@@ -149,6 +163,11 @@ class Trainer:
         self.stop_requested = False
 
     # ------------------------------------------------------------------ state
+    def _sync_state(self) -> None:
+        """Rank 0's parameters and buffers on every rank (across processes)."""
+        if self.world > 1:
+            distributed.broadcast_state(self.model)
+
     def load_weights(self, state_dict: Mapping, strict: bool = True):
         """Initialise the model from a state dict (e.g. `load_hermetic()`)."""
         return self.model.load_state_dict(state_dict, strict=strict)
@@ -195,7 +214,9 @@ class Trainer:
             self.start_epoch = int(meta["epoch"]) + 1
             self.best_eval = meta.get("best_eval")
             logger.info("Restored checkpoint %s (epoch %d)", path, self.start_epoch)
-        self.writer = ExperimentWriter(self.output_dir) if self.output_dir else None
+        self._sync_state()
+        self.writer = ExperimentWriter(self.output_dir) if (
+            self.output_dir and self.is_main) else None
 
     # ------------------------------------------------------------- validation
     @torch.no_grad()
@@ -229,22 +250,36 @@ class Trainer:
         return results
 
     def _evaluate_batches(self, epoch: int, aggs, medians, pr) -> None:
-        for batch in self.dataset.get_data_loader("val", epoch=epoch):
+        # across processes each rank takes its slice of a val batch, and the
+        # pairs are gathered; a batch that the ranks do not divide is
+        # evaluated whole on every rank (the JAX package replicates it)
+        sharded = self.world > 1 and self.dataset.batch_size("val") % self.world == 0
+        shard = (self.rank, self.world) if sharded else (0, 1)
+        for batch in self.dataset.get_data_loader("val", epoch=epoch, shard=shard):
             data = batch_to_device(batch, self.device)
             pred = self.model(data)
             losses, metrics = self.model.loss(pred, data)
+            values = {k: v.detach().float().cpu().numpy().reshape(-1)
+                      for k, v in {**losses, **metrics}.items()}
+            matches = None
             if pr is not None:
                 gt0 = data.get("gt_matches0")
                 if gt0 is None and "H_0to1" in data and "keypoints0" in pred:
                     gt0 = gt_matches_from_homography(pred["keypoints0"], pred["keypoints1"],
                                                      data["H_0to1"], pos_th=3.0)["matches0"]
                 if gt0 is not None:
-                    m0, gt0 = pred["matches0"].cpu().numpy(), gt0.cpu().numpy()
-                    # ambiguous ground truth (IGNORE, -2) leaves the metric
-                    pr.update(m0 == gt0, pred["matching_scores0"].cpu().numpy(),
-                              mask=(m0 >= 0) & (gt0 != -2))
-            for k, v in {**losses, **metrics}.items():
-                arr = v.detach().float().cpu().numpy().reshape(-1)
+                    matches = (pred["matches0"].cpu().numpy(), gt0.cpu().numpy(),
+                               pred["matching_scores0"].cpu().numpy())
+            if sharded:  # every rank's pairs, in the one-process order
+                parts = distributed.all_gather((values, matches))
+                values = {k: np.concatenate([p[0][k] for p in parts]) for k in values}
+                if matches is not None:
+                    matches = [np.concatenate(x) for x in zip(*(p[1] for p in parts))]
+            if matches is not None:
+                m0, gt0, scores = matches
+                # ambiguous ground truth (IGNORE, -2) leaves the metric
+                pr.update(m0 == gt0, scores, mask=(m0 >= 0) & (gt0 != -2))
+            for k, arr in values.items():
                 aggs[f"loss/{k}" if k in losses else k].update(arr)
                 if k in medians:
                     medians[k].update(arr)
@@ -282,7 +317,7 @@ class Trainer:
         conf = self.conf.train
         if self.dataset is None or self.experiment is None:
             raise RuntimeError("train() needs an experiment name and build()")
-        if self.output_dir:
+        if self.output_dir and self.is_main:
             self.output_dir.mkdir(parents=True, exist_ok=True)
             save_conf(self.conf, self.output_dir / "config.json")
             self._snapshot_source()
@@ -301,10 +336,12 @@ class Trainer:
             for epoch in range(self.start_epoch, conf.epochs):
                 if hasattr(self.dataset, "sample_new_items"):
                     self.dataset.sample_new_items(conf.seed + epoch)
+                shard = (self.rank, self.world)
                 if conf.overfit:
-                    loader = self.dataset.get_overfit_loader("train")
+                    loader = self.dataset.get_overfit_loader("train", shard=shard)
                 else:
-                    loader = self.dataset.get_data_loader("train", epoch=epoch, shuffle=True)
+                    loader = self.dataset.get_data_loader("train", epoch=epoch, shuffle=True,
+                                                          shard=shard)
                 t_last = time.perf_counter()
                 for batch in loader:
                     if conf.profile and it_total == conf.profile_start:
@@ -379,13 +416,16 @@ class Trainer:
             val = float(results[key])
             if self.best_eval is None or val < self.best_eval:
                 self.best_eval = val
-                save_experiment(self.experiment, self.checkpoint_state(), self.conf, epoch,
-                                it_total, results=results, best_eval=self.best_eval,
-                                is_best=True, num_keep=self.conf.train.keep_last_checkpoints)
-                logger.info("New best checkpoint (%s=%.4f)", key, val)
+                if self.is_main:
+                    save_experiment(self.experiment, self.checkpoint_state(), self.conf, epoch,
+                                    it_total, results=results, best_eval=self.best_eval,
+                                    is_best=True, num_keep=self.conf.train.keep_last_checkpoints)
+                    logger.info("New best checkpoint (%s=%.4f)", key, val)
         return results
 
     def _run_benchmarks(self, epoch: int) -> None:
+        if not self.is_main:
+            return
         from ..eval import run_benchmark
 
         for name, bconf in (self.conf.train.get("benchmarks") or {}).items():
@@ -402,6 +442,8 @@ class Trainer:
                 logger.warning("Benchmark %s failed: %s", name, e)
 
     def _save(self, epoch: int, it_total: int, results=None, interrupted: bool = False):
+        if not self.is_main:
+            return
         save_experiment(self.experiment, self.checkpoint_state(), self.conf, epoch, it_total,
                         results=results, best_eval=self.best_eval,
                         num_keep=self.conf.train.keep_last_checkpoints, interrupted=interrupted)

@@ -9,6 +9,19 @@ whose backward is the explicit formula. Tolerances: training-mode
 descriptors and log assignment 1e-4 abs; every loss entry 1e-5 relative;
 every parameter's gradient max|diff| <= 1e-3 * max|g| + 1e-7 against
 `jax.grad` of the mean total loss.
+
+`mp: True` in training (bf16 activations, fp32 parameters; checkpointed,
+masked, m == n, the stacked path) against the JAX model's bf16 step: the
+bar is the JAX package's own bf16 gap. Per parameter, the port's bf16
+gradient differs from the JAX bf16 gradient by at most twice the JAX bf16
+gradient's difference from the JAX fp32 gradient (max abs over the leaf;
+measured up to 1.63x), and each per-pair loss entry within 2^-8 relative
+(one bf16 rounding) of the JAX bf16 one (measured up to 4e-4: a per-pair
+sum can land nearer fp32 in one package by cancellation, so the JAX gap of
+a single entry is no bar). The two
+packages round to bf16 at different points (ROADMAP Queue 3a), so the
+port's numbers are not the JAX bf16 numbers, but they are as close to them
+as those are to fp32.
 """
 
 import jax
@@ -152,3 +165,35 @@ def test_flash_off_takes_the_plain_attention_with_the_same_gradients(m, n):
         grads.append({k: p.grad for k, p in tm.named_parameters()})
     for k, g in grads[0].items():
         assert float((g - grads[1][k]).abs().max()) <= 1e-4 * float(g.abs().max()) + 5e-6, k
+
+
+def test_mp_training_step_within_the_jax_bf16_gap():
+    data = _batch(8, 48, 48, True)
+    conf = {**BASE, "is_training": True, "checkpointed": True, "mp": True}
+    jm, variables, jdata, tm, tdata = _both(conf, data)
+
+    def jax_step(mp):
+        model = jax_model("lightglue").from_conf({**conf, "mp": mp})
+
+        def jloss(params):
+            losses, _ = model.apply({"params": params}, model.apply({"params": params}, jdata),
+                                    jdata, method="loss")
+            return losses["total"].mean(), losses
+
+        (_, losses), grads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+            variables["params"])
+        return jax.tree.map(np.asarray, losses), jax.tree.map(np.asarray, grads)
+
+    (l16, g16), (l32, g32) = jax_step(True), jax_step(False)
+    pred = tm(tdata)
+    assert pred["ref_descriptors0"].dtype == torch.bfloat16
+    losses, _ = tm.loss(pred, tdata)
+    for key, v in losses.items():
+        np.testing.assert_allclose(v.detach().float().numpy(), l16[key], rtol=2**-8, atol=1e-6,
+                                   err_msg=key)
+    losses["total"].mean().backward()
+    for name, p in tm.named_parameters():
+        assert p.dtype == torch.float32 and p.grad.dtype == torch.float32, name
+        gap = np.abs(g16[name] - g32[name]).max()
+        assert gap > 0, name  # the JAX step does run in bf16
+        assert np.abs(p.grad.numpy() - g16[name]).max() <= 2 * gap, name

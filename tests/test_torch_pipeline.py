@@ -111,7 +111,8 @@ def test_port_imports_no_jax():
             "ransac.py", "torch_ransac.py", "eval_pipeline.py", "nearest_neighbor_matcher.py",
             "trainer.py", "__main__.py", "homographies.py", "augmentations.py", "image_ops.py",
             "experiments.py", "summary.py", "synthetic.py", "base_dataset.py", "MP.py",
-            "mp_image_pairs.py", "superpoint_magicleap.py", "layers.py"} <= names
+            "mp_image_pairs.py", "superpoint_magicleap.py", "layers.py", "distributed.py",
+            "stdout_capturing.py"} <= names
     multipoint = {p.relative_to(ROOT / "gluefactory_tpu_torch" / "multipoint").as_posix()
                   for p in files if "multipoint" in p.parts}
     assert {"datasets/image_pair_dataset.py", "models/multipoint.py", "models/xpoint.py",

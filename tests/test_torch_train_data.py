@@ -194,7 +194,7 @@ def test_overfit_loader_fault_of_the_reference_is_not_copied():
 
 
 def test_options_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         HomographyDataset({**CONF, "features": {"do": True}})
 
 

@@ -289,7 +289,7 @@ def test_resume_equals_uninterrupted(runs, tmp_path, monkeypatch):
             assert torch.equal(a["optimizer"][kind][k], v), (kind, k)
 
 
-def test_options_not_ported_raise():
+def test_options_not_ported_raise(monkeypatch):
     conf = copy.deepcopy(tiny_conf())
     conf["train"]["plot"] = [1, "gluefactory_tpu.visualization.visualize_batch.make_match_figures"]
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
@@ -299,7 +299,10 @@ def test_options_not_ported_raise():
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         get_benchmark("megadepth1500")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    # --distributed is ported: without torchrun's environment it raises, naming it
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR"):
         main(["e", "--distributed"])
 
 
