@@ -17,11 +17,14 @@ processes) on one GPU.
      512 and 256 a side, K8 in the 864 x 480 eval box), with its time, the
      plain version's, a library yardstick's and the bound the work allows;
      for the blocks also the time of each of their three launches and of
-     the same block as bf16 torch calls. The build log's
-     registers and spills are printed, and the bf16 block kernels, the
-     attention forwards (K5, K6a, K6b, K7a, K7c and the fp32 block
-     attention) and backward (K7b), block 0 (K8) and the log assignment's
-     product (K4) must show HMMA (tensor-core) instructions in their SASS;
+     the same block as bf16 torch calls; the bf16 attention forwards are
+     held by ATT_BF16, a bar on every output and on the mean abs err. The
+     build log's registers and spills are printed (a spill of the bf16
+     forward tile's kernels fails), and the bf16 block kernels, the
+     attention forwards (K5, K6a, K6b, K7a, K7c and the block attention)
+     and backward (K7b), block 0 (K8) and the log assignment's product (K4)
+     must show HMMA (tensor-core) instructions in their SASS, the forwards'
+     bf16 instantiations HMMA.16816.F32.BF16 and no TF32 one;
   4. end to end: the two-view pipeline with the committed weights on a
      synthetic pair warped by a known homography, 480x640 / 1024 keypoints
      at batch 8 (launch counts, finiteness, agreement with the port's plain
@@ -135,7 +138,9 @@ processes) on one GPU.
      step, all bf16, the first step's total and two gradients against the
      bf16 plain path (MP_PLAIN) and against the fp32 step (MP_GAP: twice the
      JAX package's own bf16-to-fp32 gap, scripts/torch_mp_gap.py), ms a
-     step and peak memory beside phase 5's; (b) `extractor.trainable: true`:
+     step and peak memory beside phase 5's, the bf16 attention kernels'
+     share of the step, one m != n step (512 x 384: 18 bf16 K6a); (b)
+     `extractor.trainable: true`:
      `fused_block0: True` raises, the first and the descriptor head's last
      conv gradients on a b2 batch (fp32 extractor) within 0.05 max|g| of
      the float64 extractor's on the same keypoints and upstream gradient,
@@ -152,8 +157,9 @@ processes) on one GPU.
      gradients within 1e-4 max|g|, the parameters within DDP_ATOL, a NaN
      slice on rank 1 alone skipped on both ranks, ms a step with the
      all-reduce and the all-reduce's own ms. The kernel rows add the bf16
-     K5, K6b and K7b at (64, 512, 256) (13a's) and K7a and the per-head K7b
-     at (32, 4, 512, 64) (13c's).
+     K5, K6b and K7b at (64, 512, 256) and K6a at 512 x 384 (13a's; the
+     forwards and SDPA in bf16 timed by CUDA events and by device time) and
+     K7a and the per-head K7b at (32, 4, 512, 64) (13c's).
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -181,6 +187,13 @@ D, H, DH = 256, 4, 64
 # bf16: a few ulps (both sides round at the same points; a value on a
 # rounding boundary can land one ulp apart and carry on); fp32: summation order
 TOL = {"bfloat16": (0.0625, 0.03), "float32": (1e-4, 1e-5)}
+# the bf16 attention forwards (K5, K6b, K6a) against their plain versions, on
+# unit randn inputs whose outputs are ~0.065 (std ~0.08): atol + rtol |ref|
+# for every output and a bar on the mean abs err, from the readings of
+# scripts/torch_fwd_k4_variants.py on the H100: max 1.3e-3-4.8e-3, mean
+# 7.1e-5-1.4e-4 for the tile; its control, the tile with one key tile
+# skipped, max 0.30-0.81, mean 9.0e-3-2.5e-2
+ATT_BF16 = (2**-6, 2**-6, 2**-10)
 
 
 def log(msg: str) -> None:
@@ -241,6 +254,26 @@ def compare(out, ref, dtype_name: str, what: str) -> float:
         fail(f"{what}: {int(bad.sum())} entries outside atol {atol} + rtol {rtol}, "
              f"max abs err {float(diff.max()):.4g}")
     return float(diff.max())
+
+
+def attention_bar(out, ref):
+    """(max abs err, mean abs err, within ATT_BF16) of a bf16 attention
+    forward against its plain version."""
+    atol, rtol, mean_tol = ATT_BF16
+    out, ref = out.detach().float(), ref.detach().float()
+    diff = (out - ref).abs()
+    ok = torch_finite(out) and not bool((diff > atol + rtol * ref.abs()).any())
+    return float(diff.max()), float(diff.mean()), ok and float(diff.mean()) <= mean_tol
+
+
+def compare_attention(out, ref, what: str) -> float:
+    err, mean, ok = attention_bar(out, ref)
+    if not ok:
+        fail(f"{what}: max abs err {err:.4g}, mean abs err {mean:.4g} outside atol %g + rtol "
+             "%g, mean %g" % ATT_BF16)
+    log(f"[kernel] {what}: max abs err {err:.4g}, mean abs err {mean:.4g} (atol %g + rtol %g, "
+        "mean %g)" % ATT_BF16)
+    return err
 
 
 def torch_finite(t) -> bool:
@@ -378,7 +411,8 @@ def check_block(kind, s, n, seed, also=(), dt="bfloat16"):
 
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel symbol: the nested names without
-    the anonymous namespace, and <float> for a float instantiation."""
+    the anonymous namespace, and <float> or <bf16> for a float or bf16
+    instantiation."""
     if not mangled.startswith("_ZN"):
         return mangled
     i, parts = 3, []
@@ -390,17 +424,21 @@ def kernel_name(mangled: str) -> str:
         parts.append(mangled[j:j + k])
         i = j + k
     name = "::".join(p for p in parts if not p.startswith("_GLOBAL__N"))
-    return name + ("<float>" if mangled[i:i + 2] == "If" else "")
+    if mangled.startswith("If", i):
+        return name + "<float>"
+    return name + ("<bf16>" if mangled.startswith("I13__nv_bfloat16", i) else "")
 
 
 def build_report():
-    """Registers and spills of every kernel, from the nvcc logs (-Xptxas -v)."""
+    """Registers and spills of every kernel, from the nvcc logs (-Xptxas -v);
+    fails if a kernel of the bf16 forward tile (BF16_TILE_KERNELS) spills."""
     import re
 
     from gluefactory_tpu_torch import _ext
 
     for logf in sorted(_ext.BUILD.glob("*.log")):
         fn, spill = None, ""
+        bf16_tile = {k + "<bf16>" for k in BF16_TILE_KERNELS.get(logf.stem, ())}
         for line in logf.read_text().splitlines():
             if m := re.search(r"Compiling entry function '([^']+)'", line):
                 fn = kernel_name(m.group(1))
@@ -408,13 +446,16 @@ def build_report():
                 spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
             elif (m := re.search(r"Used (\d+) registers", line)) and fn:
                 log(f"[build] {logf.stem} {fn}: {m.group(1)} registers, {spill}")
+                if fn in bf16_tile and spill and spill != "spill stores 0 B, loads 0 B":
+                    fail(f"{logf.stem} {fn}: the bf16 forward tile spills ({spill})")
                 fn, spill = None, ""
 
 
 # library: (kernel-name prefixes, kernels with those prefixes), each of which
 # must have HMMA (tensor-core) instructions in its SASS
 TENSOR_CORE_KERNELS = {
-    # the bf16 block kernels and the fp32 block attention (the forward tile)
+    # the bf16 block kernels and the block attention (the forward tile) in
+    # fp32 and bf16
     "lightglue_block": (("tc::", "attn_kernel"), 4),
     # the forwards (K5, K6b, K6a, K7a, K7c) and K7b's dk/dv and dq kernels,
     # fp32 and bf16
@@ -426,27 +467,45 @@ TENSOR_CORE_KERNELS = {
 }
 
 
+# the bf16 instantiations of the forward tile's kernels (attention_fwd.cuh):
+# bf16 mma.sync m16n8k16 (HMMA.16816.F32.BF16), no TF32 pass
+BF16_TILE_KERNELS = {
+    "attention": ("attn_fwd_kernel", "cross_fwd_stacked_kernel", "cross_fwd_pair_kernel",
+                  "attn_fwd_heads_kernel", "cross_fwd_heads_kernel"),
+    "lightglue_block": ("attn_kernel",),
+}
+
+
 def check_tensor_cores():
     """Fail unless every kernel of TENSOR_CORE_KERNELS has HMMA instructions
-    in its SASS (split-TF32 products show as HMMA.1684.F32.TF32)."""
+    in its SASS (split-TF32 products show as HMMA.1688.F32.TF32, bf16 ones
+    as HMMA.16816.F32.BF16), and unless the bf16 forward tile's kernels of
+    BF16_TILE_KERNELS run bf16 HMMA and no TF32 one."""
     from gluefactory_tpu_torch import _ext
 
     cuobjdump = Path(_ext._nvcc()).parent / "cuobjdump"
     for lib, (prefix, n) in TENSOR_CORE_KERNELS.items():
         sass = subprocess.run([str(cuobjdump), "-sass", str(_ext._target(lib))],
                               capture_output=True, text=True, timeout=300).stdout
-        counts, fn = {}, None
+        counts, kinds, fn = {}, {}, None
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = kernel_name(line.split("Function :")[1].strip())
-                counts[fn] = 0
+                counts[fn], kinds[fn] = 0, set()
             elif fn is not None and "HMMA" in line:
                 counts[fn] += 1
+                kinds[fn].add(line.split("HMMA")[1].split()[0])
         log(f"[build] {lib} HMMA instructions in the SASS: " + ", ".join(
-            f"{k} {v}" for k, v in sorted(counts.items())))
+            f"{k} {v} ({' '.join('HMMA' + x for x in sorted(kinds[k]))})"
+            for k, v in sorted(counts.items())))
         tc = {k: v for k, v in counts.items() if k.startswith(prefix)}
         if len(tc) != n or not all(tc.values()):
             fail(f"the {lib} kernels {prefix} do not all use the tensor cores: {tc}")
+        for name in BF16_TILE_KERNELS.get(lib, ()):
+            got = kinds.get(name + "<bf16>")
+            if got is None or ".16816.F32.BF16" not in got or any("TF32" in x for x in got):
+                fail(f"{lib} {name}<bf16>: expected HMMA.16816.F32.BF16 and no TF32 HMMA, "
+                     f"got {got}")
 
 
 def check_assignment(b, m, n, seed):
@@ -525,11 +584,21 @@ def attention_bound(pairs, n_products, tensors_bytes, peak=PEAK_FP32_PRODUCT):
     return bound(2.0 * n_products * D * pairs, tensors_bytes, peak)
 
 
+def log_device_times(tag, kernel, library, ms, lib_ms):
+    """Log a bf16 forward and its library call by `device_ms` beside their
+    CUDA event times: at about 0.1 ms a call's Python overhead comes close
+    to its kernel."""
+    log(f"[kernel] {tag} bf16 forward: {ms:.4f} ms by events, {device_ms(kernel, 10):.4f} ms "
+        f"device time; SDPA bf16 {lib_ms:.4f} ms by events, {device_ms(library, 10):.4f} ms "
+        "device time")
+
+
 def check_self_attention(seed, b=None, n=None, timer=timed, bf16_rows=False):
     """K5 and the self form of K7b at (2b, n, 256) (default: the training
     shape, (64, 512, 256)): fp32 (timed by `timer`, the plain version by
     `timed`) and bf16; with `bf16_rows` the bf16 forms are timed too, as
-    rows "K5 bf16" and "K7b self bf16" (the `mp: True` step's)."""
+    rows "K5 bf16" and "K7b self bf16" (the `mp: True` step's), the forward
+    and its library call by CUDA events and by `device_ms` both."""
     import torch
     import torch.nn.functional as F
 
@@ -548,7 +617,8 @@ def check_self_attention(seed, b=None, n=None, timer=timed, bf16_rows=False):
         grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
         torch.cuda.synchronize()
         ref = plain.self_attention_packed(q, k, v, mask, H)
-        err_f = compare(out, ref, name, f"K5 forward {name}")
+        err_f = (compare(out, ref, name, f"K5 forward {name}") if dtype == torch.float32
+                 else compare_attention(out, ref, "K5 forward bfloat16"))
         if float(out.detach()[~mask].abs().max()) != 0.0:
             fail(f"K5 {name}: an invalid query row is not exactly zero")
         fn = lambda a, b, c: plain.self_attention_packed(a, b, c, mask, H)
@@ -573,14 +643,21 @@ def check_self_attention(seed, b=None, n=None, timer=timed, bf16_rows=False):
         lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask)
         ldo = heads(do)
         lib_b = timer(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True), 10)
+        if dtype == torch.bfloat16:
+            log_device_times("K5", lambda: fa.fused_attention_packed(q, k, v, mask, mask, H),
+                             lambda: F.scaled_dot_product_attention(
+                                 lq.detach(), lk.detach(), lv.detach(), attn_mask=amask),
+                             ms_f, lib_f)
         nv = mask.sum(1).double()
         pairs = float((nv * nv).sum())
         act = s * n * D * size
         bf, byf = attention_bound(pairs, 2, 4 * act + s * n + s * H * n * 4, peak)
         bb, byb = attention_bound(pairs, 5, 8 * act + s * n + s * H * n * 4, peak)
         tol = "atol %g + rtol %g" % TOL[name]
+        tol_f = tol if dtype == torch.float32 else (
+            "atol %g + rtol %g, mean abs err <= %g" % ATT_BF16)
         rows["K5" + suffix] = dict(max_abs_err=err_f, ms=ms_f, plain_ms=plain_f,
-                                   library_ms=lib_f, bound_ms=bf, bound_by=byf, tol=tol)
+                                   library_ms=lib_f, bound_ms=bf, bound_by=byf, tol=tol_f)
         rows["K7b self" + suffix] = dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
                                          library_ms=lib_b, bound_ms=bb, bound_by=byb, tol=tol)
     return rows
@@ -591,7 +668,8 @@ def check_cross_attention(form, seed, b=None, n=None, timer=timed, bf16_rows=Fal
     gradients of the shared projection, fp32 (timed by `timer`, the plain
     version by `timed`) and bf16; for the stacked form also the cross form
     of K7b alone. `b` pairs (default: the training batch). With `bf16_rows`
-    the bf16 forms are timed too, as rows with the suffix " bf16"."""
+    the bf16 forms are timed too, as rows with the suffix " bf16", the
+    forward and its library calls by CUDA events and by `device_ms` both."""
     import torch
     import torch.nn.functional as F
 
@@ -620,7 +698,8 @@ def check_cross_attention(form, seed, b=None, n=None, timer=timed, bf16_rows=Fal
         grads = torch.autograd.grad(out, leaves, (g0, g1))
         torch.cuda.synchronize()
         ref = ref_fn(*args, *mk, H)
-        err_f = max(compare(o, r, name, f"{tag} forward m{i} {name}")
+        err_f = max(compare(o, r, name, f"{tag} forward m{i} {name}") if dtype == torch.float32
+                    else compare_attention(o, r, f"{tag} forward m{i} bfloat16")
                     for i, (o, r) in enumerate(zip(out, ref)))
         fn = lambda *a: ref_fn(*a, *mk, H)
         err_b = max(compare(g, r, name, f"{tag} gradient {i} {name}")
@@ -640,17 +719,22 @@ def check_cross_attention(form, seed, b=None, n=None, timer=timed, bf16_rows=Fal
         if form == "stacked":
             hq, hk, hv = torch.cat([h0, h1]), torch.cat([h1, h0]), torch.cat([hv1, hv0])
             am = torch.cat([a1, a0])
-            lib_f = timer(lambda: F.scaled_dot_product_attention(hq, hk, hv, attn_mask=am), 10)
+            lib_fn = lambda: F.scaled_dot_product_attention(hq, hk, hv, attn_mask=am)
         else:
-            lib_f = timer(lambda: (F.scaled_dot_product_attention(h0, h1, hv1, attn_mask=a1),
-                                   F.scaled_dot_product_attention(h1, h0, hv0, attn_mask=a0)), 10)
+            lib_fn = lambda: (F.scaled_dot_product_attention(h0, h1, hv1, attn_mask=a1),
+                              F.scaled_dot_product_attention(h1, h0, hv0, attn_mask=a0))
+        lib_f = timer(lib_fn, 10)
+        if dtype == torch.bfloat16:
+            log_device_times(tag, lambda: kern(*args, *mk, H), lib_fn, ms_f, lib_f)
         pairs = float((mask0.sum(1).double() * mask1.sum(1).double()).sum())
         act0, act1 = b * m * D * size, b * n * D * size
         # one similarity and two message products serve both directions
         bf, byf = attention_bound(pairs, 3, 3 * (act0 + act1) + b * (m + n) * (1 + H * 4), peak)
         tol = "atol %g + rtol %g" % TOL[name]
+        tol_f = tol if dtype == torch.float32 else (
+            "atol %g + rtol %g, mean abs err <= %g" % ATT_BF16)
         rows[tag + suffix] = dict(max_abs_err=err_f, ms=ms_f, plain_ms=plain_f,
-                                  library_ms=lib_f, bound_ms=bf, bound_by=byf, tol=tol)
+                                  library_ms=lib_f, bound_ms=bf, bound_by=byf, tol=tol_f)
         if form != "stacked":
             continue
         # K7b, cross form: one direction, queries of set 0 against keys of set 1
@@ -888,7 +972,6 @@ def run_training():
     kernel, ms a step and peak MiB."""
     import torch
 
-    from gluefactory_tpu_torch.train.step import TrainState, make_optimizer, make_train_step
     from gluefactory_tpu_torch.train.trainer import Trainer
     from gluefactory_tpu_torch.utils.config import load_conf
     from gluefactory_tpu_torch.weights import load_hermetic
@@ -1014,27 +1097,41 @@ def run_training():
     log("[train] veto: a NaN batch reports skipped_nonfinite = 1 and leaves parameters, "
         "Adam moments and Adam's count bit-identical")
 
-    # m != n: the matcher alone on 512 x 384 keypoints takes the two-array path
-    matcher = trainer.model.matcher
-    data = {k: (t[:, :TRAIN_N1] if k.endswith("1") else t) for k, t in feats.items()}
-    data = {**batches[0], **data}
+    per_step["K6a"] = mn_step(trainer, batches[0], "train")
+    return per_step, step_ms, peak / 2**20
+
+
+def mn_step(trainer, batch, label, layers=9):
+    """One step of the trainer's matcher alone on 512 x 384 keypoints of
+    `batch` (m != n takes the two-array cross attention, K6a); fails unless
+    its launches are those of `layers` checkpointed layers. Returns K6a's
+    launches."""
+    import torch
+
+    from gluefactory_tpu_torch.train.step import TrainState, make_optimizer, make_train_step
+
+    with torch.no_grad():
+        views = [trainer.model.extractor(batch[v]) for v in ("view0", "view1")]
+    data = {f"{k}{i}": (t[:, :TRAIN_N1] if i else t)
+            for i, view in enumerate(views) for k, t in view.items()}
+    data = {**batch, **data}
     data.update(trainer.model.ground_truth(data))
+    matcher = trainer.model.matcher
     params = dict(matcher.named_parameters())
     state = TrainState(0, params, make_optimizer(trainer.conf.train, params))
     reset_train_counts()
     state, losses = make_train_step(matcher)(state, data)
     torch.cuda.synchronize()
-    counts2 = read_train_counts()
+    counts = read_train_counts()
     expect = {"K5": 4 * layers, "K6b": 0, "K6a": 2 * layers, "K7b self": 2 * layers,
               "K7b cross": 2 * layers}
-    log(f"[train] m != n step ({TRAIN_N} x {TRAIN_N1}): launches {counts2}, "
+    log(f"[{label}] m != n step ({TRAIN_N} x {TRAIN_N1}): launches {counts}, "
         f"total {float(losses['total']):.4f}")
-    if counts2 != expect:
-        fail(f"training, m != n: expected {expect} launches, got {counts2}")
+    if counts != expect:
+        fail(f"{label}, m != n: expected {expect} launches, got {counts}")
     if not math.isfinite(float(losses["total"])) or float(losses["skipped_nonfinite"]) != 0:
-        fail(f"training, m != n: {losses}")
-    per_step["K6a"] = counts2["K6a"]
-    return per_step, step_ms, peak / 2**20
+        fail(f"{label}, m != n: {losses}")
+    return counts["K6a"]
 
 
 # ------------------------------ phase 3: the per-head attention and block 0
@@ -3054,6 +3151,33 @@ def timed_steps(trainer, batches, steps):
     return ms, counts, torch.cuda.max_memory_allocated() / 2**20, history
 
 
+def profile_steps(trainer, batches, steps):
+    """`steps` training steps on `batches` (cycled) under torch.profiler:
+    the device time a step of every kernel, of the attention forwards (K5,
+    K6b, K6a) and of K7b's kernels, and the wall time a profiled step (ms)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        trainer.train_steps([batches[i % len(batches)] for i in range(steps)])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    total = fwd = bwd = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = e.device_time_total / 1e3
+            total += t
+            fwd += t if any(k in e.name for k in ("attn_fwd_kernel", "cross_fwd_stacked_kernel",
+                                                  "cross_fwd_pair_kernel")) else 0.0
+            bwd += t if "attn_bwd_" in e.name else 0.0
+    if total <= 0:
+        fail("profile_steps: the profiler recorded no kernel")
+    return dict(device_ms=total / steps, fwd_ms=fwd / steps, bwd_ms=bwd / steps,
+                profiled_wall_ms=wall / steps)
+
+
 def expect_counts(counts, steps, label, **per_step):
     want = {k: 0 for k in counts}
     want.update({k.replace("_", " "): v * steps for k, v in per_step.items()})
@@ -3087,7 +3211,14 @@ def check_mp_step(batches, fp32_total):
         f"MiB (phase 5: {fp32_total[1]:.0f}); launches a step {counts['K5'] // 3} K5 + "
         f"{counts['K6b'] // 3} K6b + {(counts['K7b self'] + counts['K7b cross']) // 3} K7b, "
         "all bf16; losses total " + " ".join(f"{x['total']:.4f}" for x in history))
-    return {k: v // 3 for k, v in counts.items()}, ms, peak
+    prof = profile_steps(trainer, batches, 2)
+    log(f"[train13a] a step's kernels by device time (torch.profiler, 2 steps): "
+        f"{prof['device_ms']:.2f} ms, of it the attention forwards {prof['fwd_ms']:.2f} and "
+        f"K7b {prof['bwd_ms']:.2f}; device idle {1 - prof['device_ms'] / ms:.3f} of the timed "
+        "step")
+    per_step = {k: v // 3 for k, v in counts.items()}
+    per_step["K6a"] = mn_step(trainer, batches[0], "train13a")  # bf16 K6a
+    return per_step, ms, peak
 
 
 def extractor_vjp(ext, views, kpts, g_desc, names):
@@ -3373,9 +3504,9 @@ def run_training_paths(fp32_ms, fp32_peak):
         f"trainable extractor {ext_ms:.2f} (peak {ext_peak:.0f} MiB), SuperGlue {sg_ms:.2f}, "
         f"two processes {ddp_ms:.2f} (all-reduce {reduce_ms:.2f}); phase "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return {"K5 bf16": counts["K5"], "K6b bf16": counts["K6b"],
+    return {"K5 bf16": counts["K5"], "K6b bf16": counts["K6b"], "K6a bf16": counts["K6a"],
             "K7b self bf16": counts["K7b self"], "K7b cross bf16": counts["K7b cross"],
-            **sg_counts}
+            **sg_counts}, mp_ms
 
 
 # ---------------------------------------------------------------------- main
@@ -3463,7 +3594,7 @@ def main() -> int:
         f"{compact['max_abs_err']:.3g}; {compact['ms']:.4f} ms")
     att = {**check_self_attention(20, bf16_rows=True),
            **check_cross_attention("stacked", 21, bf16_rows=True),
-           **check_cross_attention("packed", 22)}
+           **check_cross_attention("packed", 22, bf16_rows=True)}
     s2, n5, n6 = 2 * TRAIN_B, TRAIN_N, TRAIN_N1
     att_rows = [
         ("K5", f"K5 fused_attention_packed ({s2}, {n5}, 256) f32", "383"),
@@ -3475,6 +3606,8 @@ def main() -> int:
         ("K5 bf16", f"K5 fused_attention_packed ({s2}, {n5}, 256) bf16, mp training", "383"),
         ("K6b bf16", f"K6b fused_cross_attention_stacked ({s2}, {n5}, 256) bf16, mp training",
          "744"),
+        ("K6a bf16", f"K6a fused_cross_attention_packed B={TRAIN_B} M={n5} N={n6} bf16, mp "
+                     "training", "691"),
         ("K7b self bf16", f"K7b attention backward, self form ({s2}, {n5}, 256) bf16, mp "
                           "training", "222"),
         ("K7b cross bf16", f"K7b attention backward, cross form B={TRAIN_B} {n5} x {n5} bf16, "
@@ -3618,8 +3751,14 @@ def main() -> int:
 
     log(f"[time] phase 13 starts at {time.perf_counter() - t_start:.1f} s")
     # 13. the training paths: mp, a trainable extractor, SuperGlue, two processes
-    per_step.update(run_training_paths(fp32_ms, fp32_peak))
+    counts, mp_ms = run_training_paths(fp32_ms, fp32_peak)
+    per_step.update(counts)
     torch.cuda.empty_cache()
+    mp_att = {k["key"]: k["ms"] * per_step[k["key"]] for k in kernels
+              if k.get("key") in ("K5 bf16", "K6b bf16", "K7b self bf16", "K7b cross bf16")}
+    log(f"[train13a] attention kernels a step (kernel_ms x launches): "
+        f"{sum(mp_att.values()):.2f} ms of {mp_ms:.2f}, {sum(mp_att.values()) / mp_ms:.3f} of the "
+        "step (" + ", ".join(f"{k} {v:.2f}" for k, v in mp_att.items()) + ")")
     for k in kernels:
         if "key" in k:
             k["launches"] = per_step[k["key"]]

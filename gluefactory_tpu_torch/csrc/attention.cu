@@ -59,9 +59,18 @@
 // 64-key tiles double-buffered, key tiles without a valid key skipped). In
 // the backward the block's own 64 rows stay in shared memory; the loop's
 // tiles of 32 rows are double-buffered by cp.async, which keeps a block at
-// 70 KB and 168 registers a thread: three blocks a multiprocessor. The bf16
-// instantiations widen their tiles to fp32; the forward leaves out the passes
-// of the zero lo parts of its bf16 operands, the backward runs all three.
+// 70 KB and 168 registers a thread: three blocks a multiprocessor. The
+// backward's bf16 instantiation widens its tiles to fp32 and runs all three
+// passes. The forwards' bf16 instantiations, the bf16 forms of
+// _attention_kernel_packed (:319) and _bidir_cross_kernel_packed (:600), run
+// the bf16 tile of attention_fwd.cuh: 128 queries a block, bf16 tiles by
+// 16-byte cp.async in a two-stage ring (the fp32 tile's bf16 form widened
+// them by synchronous loads, which overlapped nothing), one pass of bf16
+// mma.sync m16n8k16 a product (it ran TF32 passes on the widened data), P
+// rounded to bf16 as the Pallas kernels round it; wgmma waits (the tile's
+// note says why). At S = 64, N = 512, D = 256 in bf16 the forward moves
+// 34 MB, 0.0202 ms at 3.35 TB/s, against 17 GFLOP / 989 TFLOP/s = 0.017 ms:
+// bound by bytes.
 #include <type_traits>
 
 #include "attention_fwd.cuh"
@@ -87,16 +96,22 @@ inline Lay make_lay(int layout, int N, int D, int H) {
 }
 
 // ------------------------------------------------------------- forward
-// The forward tile needs 166-176 registers a thread as compiled for each
-// kernel; capped at 168 (kFwdBlocks = 3 blocks of 4 warps an SM in place of
-// two) the cross forwards run 10-14% faster at a training step's shape. K7a
-// (SuperGlue's 512 blocks) ran 3% slower capped and is left uncapped
-// (scripts/torch_fwd_k4_variants.py).
-constexpr int kFwdBlocks = 3;
-
-// K5. grid (ceil(Nq / 64), H, S): set s attends to itself.
+// Each forward runs gf::attn_fwd_tile<T> on a block of gf::FwdTile<T>: 64
+// queries and 4 warps in fp32, 128 queries and 8 warps in bf16. The fp32
+// tile needs 166-176 registers a thread as compiled for each kernel; capped
+// at 168 (three blocks of 4 warps an SM in place of two) the cross forwards
+// run 10-14% faster at a training step's shape. K7a (SuperGlue's 512 blocks)
+// ran 3% slower capped and is left uncapped in fp32
+// (scripts/torch_fwd_k4_variants.py). The bf16 tile is capped at 128
+// registers: two blocks of 8 warps an SM.
 template <class T>
-__global__ void __launch_bounds__(kThreads, kFwdBlocks) attn_fwd_kernel(
+using Fwd = gf::FwdTile<T>;
+template <class T>
+constexpr int kK7aBlocks = std::is_same<T, float>::value ? 1 : Fwd<T>::kBlocks;
+
+// K5. grid (ceil(Nq / Fwd<T>::kQueries), H, S): set s attends to itself.
+template <class T>
+__global__ void __launch_bounds__(Fwd<T>::kThreads, Fwd<T>::kBlocks) attn_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const unsigned char* __restrict__ mq, const unsigned char* __restrict__ mk,
     T* __restrict__ out, float* __restrict__ lse, int Nq, int Nk, int D, float scale) {
@@ -105,14 +120,14 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocks) attn_fwd_kernel(
   const size_t qb = (size_t)s * Nq * D + h * kDh, kb = (size_t)s * Nk * D + h * kDh;
   gf::attn_fwd_tile<T>(q + qb, k + kb, v + kb, mq ? mq + (size_t)s * Nq : nullptr,
                        mk ? mk + (size_t)s * Nk : nullptr, out + qb,
-                       lse + ((size_t)s * H + h) * Nq, Nq, Nk, D, blockIdx.x * kTile,
-                       scale, smem);
+                       lse + ((size_t)s * H + h) * Nq, Nq, Nk, D,
+                       blockIdx.x * Fwd<T>::kQueries, scale, smem);
 }
 
-// K6b. grid (ceil(N / 64), H, 2B): set s takes its keys and values from its
-// partner (s + B) % 2B; out[s] holds the messages into set s.
+// K6b. grid (ceil(N / Fwd<T>::kQueries), H, 2B): set s takes its keys and
+// values from its partner (s + B) % 2B; out[s] holds the messages into set s.
 template <class T>
-__global__ void __launch_bounds__(kThreads, kFwdBlocks) cross_fwd_stacked_kernel(
+__global__ void __launch_bounds__(Fwd<T>::kThreads, Fwd<T>::kBlocks) cross_fwd_stacked_kernel(
     const T* __restrict__ qk, const T* __restrict__ v,
     const unsigned char* __restrict__ mask, T* __restrict__ out,
     float* __restrict__ lse, int B, int N, int D, float scale) {
@@ -122,14 +137,14 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocks) cross_fwd_stacked_kernel
   const size_t qb = (size_t)s * N * D + h * kDh, kb = (size_t)o * N * D + h * kDh;
   gf::attn_fwd_tile<T>(qk + qb, qk + kb, v + kb, mask ? mask + (size_t)s * N : nullptr,
                        mask ? mask + (size_t)o * N : nullptr, out + qb,
-                       lse + ((size_t)s * H + h) * N, N, N, D, blockIdx.x * kTile, scale,
-                       smem);
+                       lse + ((size_t)s * H + h) * N, N, N, D, blockIdx.x * Fwd<T>::kQueries,
+                       scale, smem);
 }
 
-// K6a. grid (ceil(max(M, N) / 64), H, 2B): z < B is direction 0 (queries of
-// set 0, M rows, against set 1), z >= B direction 1.
+// K6a. grid (ceil(max(M, N) / Fwd<T>::kQueries), H, 2B): z < B is direction 0
+// (queries of set 0, M rows, against set 1), z >= B direction 1.
 template <class T>
-__global__ void __launch_bounds__(kThreads, kFwdBlocks) cross_fwd_pair_kernel(
+__global__ void __launch_bounds__(Fwd<T>::kThreads, Fwd<T>::kBlocks) cross_fwd_pair_kernel(
     const T* __restrict__ qk0, const T* __restrict__ qk1, const T* __restrict__ v0,
     const T* __restrict__ v1, const unsigned char* __restrict__ mask0,
     const unsigned char* __restrict__ mask1, T* __restrict__ out0, T* __restrict__ out1,
@@ -140,7 +155,7 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocks) cross_fwd_pair_kernel(
   const bool fwd = (int)blockIdx.z < B;
   const int b = fwd ? blockIdx.z : blockIdx.z - B;
   const int nq = fwd ? M : N, nk = fwd ? N : M;
-  const int i0 = blockIdx.x * kTile;
+  const int i0 = blockIdx.x * Fwd<T>::kQueries;
   if (i0 >= nq) return;
   const size_t qb = (size_t)b * nq * D + h * kDh, kb = (size_t)b * nk * D + h * kDh;
   const unsigned char* mq = fwd ? mask0 : mask1;
@@ -151,10 +166,10 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocks) cross_fwd_pair_kernel(
                        nq, nk, D, i0, scale, smem);
 }
 
-// K7a. grid (ceil(Nq / 64), H, B) on the per-head layout: q, out
-// (B, H, Nq, 64), k, v (B, H, Nk, 64), separate query and key masks.
+// K7a. grid (ceil(Nq / Fwd<T>::kQueries), H, B) on the per-head layout: q,
+// out (B, H, Nq, 64), k, v (B, H, Nk, 64), separate query and key masks.
 template <class T>
-__global__ void __launch_bounds__(kThreads) attn_fwd_heads_kernel(
+__global__ void __launch_bounds__(Fwd<T>::kThreads, kK7aBlocks<T>) attn_fwd_heads_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const unsigned char* __restrict__ mq, const unsigned char* __restrict__ mk,
     T* __restrict__ out, float* __restrict__ lse, int Nq, int Nk, float scale) {
@@ -163,14 +178,15 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_heads_kernel(
   const size_t slab = (size_t)s * H + h;
   gf::attn_fwd_tile<T>(q + slab * Nq * kDh, k + slab * Nk * kDh, v + slab * Nk * kDh,
                        mq ? mq + (size_t)s * Nq : nullptr, mk ? mk + (size_t)s * Nk : nullptr,
-                       out + slab * Nq * kDh, lse + slab * Nq, Nq, Nk, kDh, blockIdx.x * kTile,
-                       scale, smem);
+                       out + slab * Nq * kDh, lse + slab * Nq, Nq, Nk, kDh,
+                       blockIdx.x * Fwd<T>::kQueries, scale, smem);
 }
 
-// K7c. grid (ceil(max(M, N) / 64), H, 2B) on the per-head layout: z < B is
-// direction 0 (queries of set 0, M rows, against set 1), z >= B direction 1.
+// K7c. grid (ceil(max(M, N) / Fwd<T>::kQueries), H, 2B) on the per-head
+// layout: z < B is direction 0 (queries of set 0, M rows, against set 1),
+// z >= B direction 1.
 template <class T>
-__global__ void __launch_bounds__(kThreads, kFwdBlocks) cross_fwd_heads_kernel(
+__global__ void __launch_bounds__(Fwd<T>::kThreads, Fwd<T>::kBlocks) cross_fwd_heads_kernel(
     const T* __restrict__ qk0, const T* __restrict__ qk1, const T* __restrict__ v0,
     const T* __restrict__ v1, const unsigned char* __restrict__ mask0,
     const unsigned char* __restrict__ mask1, T* __restrict__ out0, T* __restrict__ out1,
@@ -180,7 +196,7 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocks) cross_fwd_heads_kernel(
   const bool fwd = (int)blockIdx.z < B;
   const int b = fwd ? blockIdx.z : blockIdx.z - B;
   const int nq = fwd ? M : N, nk = fwd ? N : M;
-  const int i0 = blockIdx.x * kTile;
+  const int i0 = blockIdx.x * Fwd<T>::kQueries;
   if (i0 >= nq) return;
   const size_t slab = (size_t)b * H + h;
   const unsigned char* mq = fwd ? mask0 : mask1;
@@ -464,10 +480,10 @@ int launch_attn_fwd(const void* q, const void* k, const void* v, const unsigned 
                     const unsigned char* mk, void* out, float* lse, int S, int Nq, int Nk,
                     int D, int H, float scale, cudaStream_t st) {
   if (D != H * kDh) return (int)cudaErrorInvalidValue;
-  static cudaError_t attr = gf::allow_smem(attn_fwd_kernel<T>, gf::kAttnFwdSmem);
+  static cudaError_t attr = gf::allow_smem(attn_fwd_kernel<T>, Fwd<T>::kSmem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((Nq + kTile - 1) / kTile, H, S);
-  GF_LAUNCH(attn_fwd_kernel<T>, grid, kThreads, gf::kAttnFwdSmem, st, (const T*)q,
+  dim3 grid((Nq + Fwd<T>::kQueries - 1) / Fwd<T>::kQueries, H, S);
+  GF_LAUNCH(attn_fwd_kernel<T>, grid, Fwd<T>::kThreads, Fwd<T>::kSmem, st, (const T*)q,
             (const T*)k, (const T*)v, mq, mk, (T*)out, lse, Nq, Nk, D, scale);
   return (int)cudaGetLastError();
 }
@@ -477,10 +493,10 @@ int launch_cross_stacked(const void* qk, const void* v, const unsigned char* mas
                          float* lse, int B, int N, int D, int H, float scale,
                          cudaStream_t st) {
   if (D != H * kDh) return (int)cudaErrorInvalidValue;
-  static cudaError_t attr = gf::allow_smem(cross_fwd_stacked_kernel<T>, gf::kAttnFwdSmem);
+  static cudaError_t attr = gf::allow_smem(cross_fwd_stacked_kernel<T>, Fwd<T>::kSmem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((N + kTile - 1) / kTile, H, 2 * B);
-  GF_LAUNCH(cross_fwd_stacked_kernel<T>, grid, kThreads, gf::kAttnFwdSmem, st,
+  dim3 grid((N + Fwd<T>::kQueries - 1) / Fwd<T>::kQueries, H, 2 * B);
+  GF_LAUNCH(cross_fwd_stacked_kernel<T>, grid, Fwd<T>::kThreads, Fwd<T>::kSmem, st,
             (const T*)qk, (const T*)v, mask, (T*)out, lse, B, N, D, scale);
   return (int)cudaGetLastError();
 }
@@ -491,11 +507,11 @@ int launch_cross_pair(const void* qk0, const void* qk1, const void* v0, const vo
                       void* out1, float* lse0, float* lse1, int B, int M, int N, int D,
                       int H, float scale, cudaStream_t st) {
   if (D != H * kDh) return (int)cudaErrorInvalidValue;
-  static cudaError_t attr = gf::allow_smem(cross_fwd_pair_kernel<T>, gf::kAttnFwdSmem);
+  static cudaError_t attr = gf::allow_smem(cross_fwd_pair_kernel<T>, Fwd<T>::kSmem);
   if (attr != cudaSuccess) return (int)attr;
   const int longer = M > N ? M : N;
-  dim3 grid((longer + kTile - 1) / kTile, H, 2 * B);
-  GF_LAUNCH(cross_fwd_pair_kernel<T>, grid, kThreads, gf::kAttnFwdSmem, st, (const T*)qk0,
+  dim3 grid((longer + Fwd<T>::kQueries - 1) / Fwd<T>::kQueries, H, 2 * B);
+  GF_LAUNCH(cross_fwd_pair_kernel<T>, grid, Fwd<T>::kThreads, Fwd<T>::kSmem, st, (const T*)qk0,
             (const T*)qk1, (const T*)v0, (const T*)v1, mask0, mask1, (T*)out0, (T*)out1,
             lse0, lse1, B, M, N, D, scale);
   return (int)cudaGetLastError();
@@ -505,10 +521,10 @@ template <class T>
 int launch_attn_heads(const void* q, const void* k, const void* v, const unsigned char* mq,
                       const unsigned char* mk, void* out, float* lse, int B, int H, int Nq,
                       int Nk, float scale, cudaStream_t st) {
-  static cudaError_t attr = gf::allow_smem(attn_fwd_heads_kernel<T>, gf::kAttnFwdSmem);
+  static cudaError_t attr = gf::allow_smem(attn_fwd_heads_kernel<T>, Fwd<T>::kSmem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((Nq + kTile - 1) / kTile, H, B);
-  GF_LAUNCH(attn_fwd_heads_kernel<T>, grid, kThreads, gf::kAttnFwdSmem, st, (const T*)q,
+  dim3 grid((Nq + Fwd<T>::kQueries - 1) / Fwd<T>::kQueries, H, B);
+  GF_LAUNCH(attn_fwd_heads_kernel<T>, grid, Fwd<T>::kThreads, Fwd<T>::kSmem, st, (const T*)q,
             (const T*)k, (const T*)v, mq, mk, (T*)out, lse, Nq, Nk, scale);
   return (int)cudaGetLastError();
 }
@@ -518,11 +534,11 @@ int launch_cross_heads(const void* qk0, const void* qk1, const void* v0, const v
                        const unsigned char* mask0, const unsigned char* mask1, void* out0,
                        void* out1, float* lse0, float* lse1, int B, int H, int M, int N,
                        float scale, cudaStream_t st) {
-  static cudaError_t attr = gf::allow_smem(cross_fwd_heads_kernel<T>, gf::kAttnFwdSmem);
+  static cudaError_t attr = gf::allow_smem(cross_fwd_heads_kernel<T>, Fwd<T>::kSmem);
   if (attr != cudaSuccess) return (int)attr;
   const int longer = M > N ? M : N;
-  dim3 grid((longer + kTile - 1) / kTile, H, 2 * B);
-  GF_LAUNCH(cross_fwd_heads_kernel<T>, grid, kThreads, gf::kAttnFwdSmem, st, (const T*)qk0,
+  dim3 grid((longer + Fwd<T>::kQueries - 1) / Fwd<T>::kQueries, H, 2 * B);
+  GF_LAUNCH(cross_fwd_heads_kernel<T>, grid, Fwd<T>::kThreads, Fwd<T>::kSmem, st, (const T*)qk0,
             (const T*)qk1, (const T*)v0, (const T*)v1, mask0, mask1, (T*)out0, (T*)out1,
             lse0, lse1, B, M, N, scale);
   return (int)cudaGetLastError();

@@ -39,13 +39,13 @@
 //              tiles (55.5 KB of shared memory, 126 registers: two blocks an
 //              SM); the epilogue reads a row group's operands before it
 //              stores them;
-//   attention  FlashAttention-2 form: 128 queries a block, a warp owns 16
-//              and keeps their Q fragments in registers, 64-key K/V tiles
-//              double-buffered (54.1 KB, 128 registers: two blocks an SM);
-//              the softmax runs in registers with quad shuffles; P goes to
-//              bf16 in registers as the A operand of P V, as the Pallas
-//              kernel rounds e.astype(cd) (:174, :255); a key tile with no
-//              valid key is skipped;
+//   attention  the bf16 tile of attention_fwd.cuh, shared with the
+//              training forwards (attn_kernel<__nv_bfloat16>): 128 queries
+//              a block, a warp owns 16, 64-key K/V tiles double-buffered
+//              (54.1 KB, two blocks an SM); the softmax runs in registers
+//              with quad shuffles; P goes to bf16 in registers as the A
+//              operand of P V, as the Pallas kernel rounds e.astype(cd)
+//              (:174, :255); a key tile with no valid key is skipped;
 //   FFN tail   64 rows a block, so the 0.92 MB of weights are read once for
 //              every 64 rows (the fp32 kernel: every 16); 256-column chunks,
 //              16-deep weight tiles in a four-stage cp.async ring; h (64 x 512
@@ -141,13 +141,12 @@ __global__ void __launch_bounds__(kThreads) proj_kernel(
 }
 
 // ----------------------------------------------------------- attention
-// grid (ceil(N / 64), H, S); the tile itself is gf::attn_fwd_tile
-// (attention_fwd.cuh), shared with the training attention kernels, and
-// capped like them at 168 registers: three blocks a multiprocessor.
-constexpr int kAttnSmem = gf::kAttnFwdSmem;
-
+// grid (ceil(N / gf::FwdTile<T>::kQueries), H, S); the tile itself is
+// gf::attn_fwd_tile<T> (attention_fwd.cuh), shared with the training
+// attention kernels and capped like them: fp32 64 queries a block at 168
+// registers (three blocks a multiprocessor), bf16 128 queries at 128 (two).
 template <class T>
-__global__ void __launch_bounds__(gf::kAttnThreads, 3) attn_kernel(
+__global__ void __launch_bounds__(gf::FwdTile<T>::kThreads, gf::FwdTile<T>::kBlocks) attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const unsigned char* __restrict__ mask, T* __restrict__ out,
     int S, int N, int D, int kv_shift, float scale) {
@@ -159,7 +158,8 @@ __global__ void __launch_bounds__(gf::kAttnThreads, 3) attn_kernel(
   gf::attn_fwd_tile<T>(q + qbase, k + kbase, v + kbase,
                        mask == nullptr ? nullptr : mask + (size_t)s * N,
                        mask == nullptr ? nullptr : mask + (size_t)kvs * N,
-                       out + qbase, nullptr, N, N, D, blockIdx.x * kTile, scale, smem);
+                       out + qbase, nullptr, N, N, D, blockIdx.x * gf::FwdTile<T>::kQueries,
+                       scale, smem);
 }
 
 // ------------------------------------------------------------ FFN tail
@@ -298,11 +298,12 @@ __global__ void __launch_bounds__(kThreads) ffn_tail_kernel(
 
 
 // ===================================================== tensor-core path (bf16)
-// The T = __nv_bfloat16 instantiation of the three entry points. Every
-// product is mma.sync m16n8k16 (bf16 in, fp32 accumulators) on operands
-// staged in bf16 shared memory by cp.async; fragments come from ldmatrix
-// (.trans for the row-major weights and for V). Padded row strides (+8 bf16)
-// keep the eight 16-byte rows of every ldmatrix on distinct banks.
+// The T = __nv_bfloat16 instantiation of proj and the FFN tail (the
+// attention is attn_kernel<__nv_bfloat16> above). Every product is mma.sync
+// m16n8k16 (bf16 in, fp32 accumulators) on operands staged in bf16 shared
+// memory by cp.async; fragments come from ldmatrix (.trans for the row-major
+// weights). Padded row strides (+8 bf16) keep the eight 16-byte rows of
+// every ldmatrix on distinct banks.
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -433,167 +434,6 @@ __global__ void __launch_bounds__(kThreads) proj_kernel(
                      vo * post);
       }
     }
-  }
-}
-
-// ----------------------------------------------------------- attention
-// FlashAttention-2 form: grid (ceil(N / 128), H, S), 8 warps; warp w owns
-// queries 16w..16w+15 of the block's 128 and keeps their Q fragments in
-// registers; 64-key K/V tiles are double-buffered by cp.async. S = Q K^T
-// and O += P V run on mma.sync; the online softmax stays in registers (row
-// max and sum over the quad of lanes that share a row, by shuffles); P is
-// rounded to bf16 as the A operand of P V while the row sums keep it in
-// fp32, as the Pallas kernel does (pallas_lightglue_block.py:174, :255). A
-// key tile with no valid key is skipped.
-constexpr int kAttnThreads = 256;
-constexpr int kQ = 128, kKT = 64, kHS = kDh + 8;  // queries, keys a tile, row stride
-constexpr int kAttnSmem = (kQ + 4 * kKT) * kHS * (int)sizeof(bf16) + 2 * kKT;
-
-__global__ void __launch_bounds__(kAttnThreads) attn_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const unsigned char* __restrict__ mask, bf16* __restrict__ out,
-    int S, int N, int D, int kv_shift, float scale) {
-  GF_DYN_SMEM(bf16, smem);
-  bf16* Qs = smem;                 // [kQ][kHS]
-  bf16* Ks = Qs + kQ * kHS;        // [2][kKT][kHS]
-  bf16* Vs = Ks + 2 * kKT * kHS;   // [2][kKT][kHS]
-  unsigned char* kval = reinterpret_cast<unsigned char*>(Vs + 2 * kKT * kHS);  // [2][kKT]
-  const int s = blockIdx.z, h = blockIdx.y, kvs = (s + kv_shift) % S;
-  const bf16* qb = q + (size_t)s * N * D + h * kDh;
-  const bf16* kb = k + (size_t)kvs * N * D + h * kDh;
-  const bf16* vb = v + (size_t)kvs * N * D + h * kDh;
-  bf16* ob = out + (size_t)s * N * D + h * kDh;
-  const unsigned char* mq = mask == nullptr ? nullptr : mask + (size_t)s * N;
-  const unsigned char* mk = mask == nullptr ? nullptr : mask + (size_t)kvs * N;
-  const int i0 = blockIdx.x * kQ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-
-  for (int e = 0; e < kQ * 8 / kAttnThreads; ++e) {  // Q: kQ rows x 8 chunks
-    int idx = tid + e * kAttnThreads, r = idx / 8, c = (idx % 8) * 8;
-    bool in = i0 + r < N;
-    gf::cp_async16(Qs + r * kHS + c, qb + (size_t)(in ? i0 + r : 0) * D + c, in);
-  }
-  auto load_kv = [&](int stage, int j0) {
-    for (int e = 0; e < kKT * 8 / kAttnThreads; ++e) {  // K, V: 64 rows x 8 chunks
-      int idx = tid + e * kAttnThreads, r = idx / 8, c = (idx % 8) * 8;
-      bool in = j0 + r < N;
-      size_t off = (size_t)(in ? j0 + r : 0) * D + c;
-      gf::cp_async16(Ks + (stage * kKT + r) * kHS + c, kb + off, in);
-      gf::cp_async16(Vs + (stage * kKT + r) * kHS + c, vb + off, in);
-    }
-    if (tid < kKT) {
-      int j = j0 + tid;
-      kval[stage * kKT + tid] = j < N && (mk == nullptr || mk[j]);
-    }
-  };
-
-  const float kNone = -1e30f, scale_log2 = scale * 1.4426950408889634f;
-  unsigned qf[4][4];  // this warp's 16 x 64 queries, four k16 steps
-  // rows g (r = 0) and g + 8 (r = 1): running max m and lane-partial sum l
-  // (logits in log2 units), context o
-  float o[8][4] = {}, m[2] = {kNone, kNone}, l[2] = {0.f, 0.f};
-  const int nt = (N + kKT - 1) / kKT;
-  load_kv(0, 0);
-  gf::cp_async_commit();
-  for (int jt = 0; jt < nt; ++jt) {
-    gf::cp_async_wait<0>();
-    __syncthreads();  // tile jt landed; every warp is done with tile jt - 1
-    if (jt + 1 < nt) load_kv((jt + 1) % 2, (jt + 1) * kKT);
-    gf::cp_async_commit();
-    if (jt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        gf::ldsm_x4(qf[kk], Qs + (warp * 16 + lane % 16) * kHS + kk * 16 + (lane / 16) * 8);
-    }
-    const bf16* Kt = Ks + (jt % 2) * kKT * kHS;
-    const bf16* Vt = Vs + (jt % 2) * kKT * kHS;
-    const unsigned char* kv = kval + (jt % 2) * kKT;
-    // the tile's validity bytes, four a word: skip a tile without a valid key,
-    // take the tile without masking when every key is valid
-    unsigned any = 0, all = 1;
-#pragma unroll
-    for (int wd = 0; wd < kKT / 4; ++wd) {
-      unsigned word = reinterpret_cast<const unsigned*>(kv)[wd];
-      any |= word;
-      all &= word == 0x01010101u;
-    }
-    if (!any) continue;  // the same for the whole block
-    unsigned bits = 0;  // bit 2ni + c: key ni * 8 + 2t + c of this lane's columns
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-      bits |= (unsigned)(kv[ni * 8 + 2 * t] | kv[ni * 8 + 2 * t + 1] << 1) << (2 * ni);
-
-    float sc[8][4] = {};  // 16 queries x 64 keys
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        unsigned b[4];  // keys 16nj.. as two n8 tiles, dims 16kk..
-        gf::ldsm_x4(b, Kt + (nj * 16 + (lane / 16) * 8 + lane % 8) * kHS + kk * 16 +
-                           (lane / 8) % 2 * 8);
-        gf::mma_bf16_m16n8k16(sc[2 * nj], qf[kk], b);
-        gf::mma_bf16_m16n8k16(sc[2 * nj + 1], qf[kk], b + 2);
-      }
-    // logits in log2 units: exp(x * scale) = exp2(x * scale * log2(e))
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = all || (bits >> (2 * ni + (e & 1)) & 1u);
-        const float val = valid ? sc[ni][e] * scale_log2 : kNone;
-        sc[ni][e] = val;
-        mx[e / 2] = fmaxf(mx[e / 2], val);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], gf::shfl_xor(mx[r], 1));
-      mx[r] = fmaxf(mx[r], gf::shfl_xor(mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        o[ni][e] *= alpha[e / 2];
-        const bool valid = all || (bits >> (2 * ni + (e & 1)) & 1u);
-        const float p = valid ? exp2f(sc[ni][e] - m[e / 2]) : 0.f;
-        sc[ni][e] = p;
-        l[e / 2] += p;
-      }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // keys 16kk..16kk+15
-      const unsigned pf[4] = {gf::pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              gf::pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              gf::pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              gf::pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-      for (int dj = 0; dj < 4; ++dj) {
-        unsigned b[4];  // keys 16kk.., dims 16dj.. as two n8 tiles
-        gf::ldsm_x4_trans(b, Vt + (kk * 16 + (lane / 8) % 2 * 8 + lane % 8) * kHS + dj * 16 +
-                                 (lane / 16) * 8);
-        gf::mma_bf16_m16n8k16(o[2 * dj], pf, b);
-        gf::mma_bf16_m16n8k16(o[2 * dj + 1], pf, b + 2);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float lr = l[r];
-    lr += gf::shfl_xor(lr, 1);
-    lr += gf::shfl_xor(lr, 2);
-    const int gi = i0 + warp * 16 + g + 8 * r;
-    if (gi >= N) continue;
-    const bool live = (mq == nullptr || mq[gi]) && lr > 0.f;
-    const float inv = live ? 1.f / lr : 0.f;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-      store_bf16x2(ob + (size_t)gi * D + ni * 8 + 2 * t, o[ni][2 * r] * inv,
-                   o[ni][2 * r + 1] * inv);
   }
 }
 
@@ -800,11 +640,12 @@ template <class T>
 int launch_attn(const void* q, const void* k, const void* v,
                 const unsigned char* mask, void* out, int S, int N, int D,
                 int H, int kv_shift, float scale, cudaStream_t stream) {
+  using Tile = gf::FwdTile<T>;
   if (D != H * kDh) return (int)cudaErrorInvalidValue;
-  static cudaError_t attr = gf::allow_smem(attn_kernel<T>, kAttnSmem);
+  static cudaError_t attr = gf::allow_smem(attn_kernel<T>, Tile::kSmem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((N + kTile - 1) / kTile, H, S);
-  GF_LAUNCH(attn_kernel<T>, grid, gf::kAttnThreads, kAttnSmem, stream, (const T*)q,
+  dim3 grid((N + Tile::kQueries - 1) / Tile::kQueries, H, S);
+  GF_LAUNCH(attn_kernel<T>, grid, Tile::kThreads, Tile::kSmem, stream, (const T*)q,
             (const T*)k, (const T*)v, mask, (T*)out, S, N, D, kv_shift, scale);
   return (int)cudaGetLastError();
 }
@@ -843,19 +684,6 @@ int launch_proj_tc(const void* x, int rows, int K, const void* w0, const void* w
             K, (const bf16*)w0, (const bf16*)w1, (const bf16*)w2, ldw, (const bf16*)b0,
             (const bf16*)b1, (const bf16*)b2, (bf16*)o0, (bf16*)o1, (bf16*)o2, D,
             (const bf16*)cos_t, (const bf16*)sin_t, dh, rotary_segs, q_scale);
-  return (int)cudaGetLastError();
-}
-
-int launch_attn_tc(const void* q, const void* k, const void* v, const unsigned char* mask,
-                   void* out, int S, int N, int D, int H, int kv_shift, float scale,
-                   cudaStream_t stream) {
-  using tc::bf16;
-  if (D != H * kDh || D % 8) return (int)cudaErrorInvalidValue;
-  static cudaError_t attr = gf::allow_smem(tc::attn_kernel, tc::kAttnSmem);
-  if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((N + tc::kQ - 1) / tc::kQ, H, S);
-  GF_LAUNCH(tc::attn_kernel, grid, tc::kAttnThreads, tc::kAttnSmem, stream, (const bf16*)q,
-            (const bf16*)k, (const bf16*)v, mask, (bf16*)out, S, N, D, kv_shift, scale);
   return (int)cudaGetLastError();
 }
 
@@ -898,7 +726,7 @@ int lg_attention(const void* q, const void* k, const void* v, const void* mask,
   auto st = (cudaStream_t)stream;
   auto mk = (const unsigned char*)mask;
   if (dtype == gf::kBF16)
-    return launch_attn_tc(q, k, v, mk, out, S, N, D, H, kv_shift, scale, st);
+    return launch_attn<tc::bf16>(q, k, v, mk, out, S, N, D, H, kv_shift, scale, st);
   return launch_attn<float>(q, k, v, mk, out, S, N, D, H, kv_shift, scale, st);
 }
 

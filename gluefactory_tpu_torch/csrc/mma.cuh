@@ -1,7 +1,7 @@
 // Warp-level building blocks of the tensor-core kernels: bf16 and TF32
-// mma.sync, ldmatrix and cp.async as inline PTX on the card, lane shuffles,
-// and the split-TF32 fragments of fp32 tiles in shared memory (fp32
-// accuracy on the TF32 tensor cores).
+// mma.sync, ldmatrix, cp.async and ex2.approx as inline PTX on the card,
+// lane shuffles, and the split-TF32 fragments of fp32 tiles in shared
+// memory (fp32 accuracy on the TF32 tensor cores).
 // tests/cuda_emu/cuda_runtime.h defines GF_EMU_WARP and gives the same
 // functions (and __shfl_xor_sync) as stand-ins that exchange fragments
 // through per-warp scratch, so the kernels that call them run on the CPU
@@ -102,6 +102,14 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int n>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: about 2^-22 relative
+// error; a result below 2^-126 is flushed to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 #endif  // GF_EMU_WARP

@@ -11,7 +11,9 @@ call: the CUDA kernels on CUDA tensors, the plain versions on CPU tensors.
 Semantics, those of the JAX package's `_sdpa` (:43-58): masked keys are
 excluded from the softmax and get weight exactly 0; a query row that is
 invalid or has no valid key gets an exact zero context and a zero gradient
-(the out-projection bias still reaches it downstream).
+(the out-projection bias still reaches it downstream). Where the values are
+bf16, the normalised probabilities are rounded to bf16 before the product
+with them, as `_sdpa` rounds `attn.astype(v.dtype)` (:55-58, :140-147).
 """
 
 from __future__ import annotations
@@ -35,12 +37,18 @@ def apply_rotary(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
 
 def _to_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, n, d = x.shape
-    return x.float().reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
+    return x.reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
 
 
 def _to_packed(x: torch.Tensor) -> torch.Tensor:
     b, h, n, dh = x.shape
     return x.transpose(1, 2).reshape(b, n, h * dh)
+
+
+def _as_values(attn: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The probabilities rounded to the values' type (a no-op for fp32
+    values), in fp32 for the product."""
+    return attn.to(v.dtype).float()
 
 
 def masked_softmax(sim: torch.Tensor, pair: Optional[torch.Tensor], dim: int) -> torch.Tensor:
@@ -65,13 +73,13 @@ def attention_heads(q, k, v, mask_q, mask_k, scale: float) -> torch.Tensor:
     """Masked attention on the per-head layout, fp32 math: q (B, H, Nq, Dh),
     k, v (B, H, Nk, Dh), masks (B, Nq) / (B, Nk) bool or None. Returns the
     fp32 (B, H, Nq, Dh) context; rows that are invalid or see no valid key
-    are zero."""
+    are zero. bf16 values take the probabilities rounded to bf16."""
     b, _, nq, _ = q.shape
     nk = k.shape[2]
     sim = torch.einsum("bhid,bhjd->bhij", q.float(), k.float())
     pair = _pair_mask(mask_q, mask_k, b, nq, nk, q.device)
     attn = masked_softmax(sim * scale, pair, dim=-1)
-    return torch.einsum("bhij,bhjd->bhid", attn, v.float())
+    return torch.einsum("bhij,bhjd->bhid", _as_values(attn, v), v.float())
 
 
 def cross_attention_heads(qk0, qk1, v0, v1, mask0=None, mask1=None):
@@ -79,8 +87,12 @@ def cross_attention_heads(qk0, qk1, v0, v1, mask0=None, mask1=None):
     (the projection is shared, so sim(1->0) = sim(0->1)^T): the row softmax
     gives the messages into set 0, the column softmax those into set 1. The
     scale Dh**-0.5 is split as Dh**-0.25 a side
-    (gluefactory_tpu/ops/attention.py:128). Returns fp32
-    (m0 (B, H, M, Dh), m1 (B, H, N, Dh))."""
+    (gluefactory_tpu/ops/attention.py:128; in fp32 here, as the Pallas
+    kernels, the port's kernels and the jitted XLA path compute it: run op
+    by op, the XLA path rounds qk * Dh**-0.25 to bf16 for bf16 inputs, but
+    XLA's compiler drops that rounding and feeds the fp32 product to the
+    einsum). bf16 values take the probabilities rounded to bf16. Returns fp32 (m0 (B, H, M, Dh),
+    m1 (B, H, N, Dh))."""
     b, _, m, dh = qk0.shape
     n = qk1.shape[2]
     s = dh**-0.25
@@ -88,8 +100,8 @@ def cross_attention_heads(qk0, qk1, v0, v1, mask0=None, mask1=None):
     pair = _pair_mask(mask0, mask1, b, m, n, qk0.device)  # a missing mask is all valid
     attn01 = masked_softmax(sim, pair, dim=-1)
     attn10 = masked_softmax(sim, pair, dim=-2)
-    m0 = torch.einsum("bhij,bhjd->bhid", attn01, v1.float())
-    m1 = torch.einsum("bhij,bhid->bhjd", attn10, v0.float())
+    m0 = torch.einsum("bhij,bhjd->bhid", _as_values(attn01, v1), v1.float())
+    m1 = torch.einsum("bhij,bhid->bhjd", _as_values(attn10, v0), v0.float())
     return m0, m1
 
 

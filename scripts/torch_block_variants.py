@@ -66,14 +66,16 @@ def inlined_headers(mma=(), fwd=()):
             ('#include "mma.cuh"\n', "")]
 
 
-def build(variants_by_lib: dict, out: Path) -> dict:
-    """Build every variant of each csrc/<name>.cu, all nvcc processes at once,
-    and load them: {name: {label: library}}."""
+def build(variants_by_lib: dict, out: Path, csrc: Path | None = None) -> dict:
+    """Build every variant of each <csrc>/<name>.cu (default: this checkout's
+    csrc/), all nvcc processes at once, and load them: {name: {label:
+    library}}."""
     from gluefactory_tpu_torch import _ext
 
+    csrc = csrc or _ext.CSRC
     procs = {}
     for name, variants in variants_by_lib.items():
-        src = (_ext.CSRC / f"{name}.cu").read_text()
+        src = (csrc / f"{name}.cu").read_text()
         for i, (label, subs) in enumerate(variants.items()):
             s = src
             for a, b in subs:
@@ -83,7 +85,7 @@ def build(variants_by_lib: dict, out: Path) -> dict:
             cu = out / f"{name}_variant_{i}.cu"
             cu.write_text(s)
             so = out / f"lib{name}_variant_{i}.so"
-            cmd = [_ext._nvcc(), *_ext.NVCC_FLAGS, f"-I{_ext.CSRC}", "-o", str(so), str(cu)]
+            cmd = [_ext._nvcc(), *_ext.NVCC_FLAGS, f"-I{csrc}", "-o", str(so), str(cu)]
             procs[name, label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                    stderr=subprocess.STDOUT, text=True), so)
     libs = {name: {} for name in variants_by_lib}
@@ -92,6 +94,7 @@ def build(variants_by_lib: dict, out: Path) -> dict:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name} {label!r}:\n{log[-3000:]}")
         lib = ctypes.CDLL(str(so))
+        lib.build_log = log  # nvcc's output: ptxas's registers and spills of each kernel
         for fn, argtypes in _ext.SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

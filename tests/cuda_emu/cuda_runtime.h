@@ -260,6 +260,12 @@ inline void cp_async_commit() {}
 template <int n>
 inline void cp_async_wait() {}
 
+// ex2.approx.ftz: a subnormal result is flushed to 0
+inline float exp2_approx(float x) {
+  const float y = std::exp2(x);
+  return std::fpclassify(y) == FP_SUBNORMAL ? 0.f : y;
+}
+
 }  // namespace gf
 
 alignas(16) inline unsigned char gf_emu_smem[232448];

@@ -399,3 +399,45 @@ def test_block0_kernel_matches_plain(libs, b, h, w, blocks):
     assert out.shape == ref.shape == (b, h // 2, w // 2, 64) and out.dtype == torch.bfloat16
     _close(out, ref, torch.bfloat16)
     assert float((out.float() - ref.float()).abs().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("form,n", [("self", 70), ("stacked", 70), ("stacked", 150)])
+def test_bf16_forward_tile_matches_the_pallas_kernels(libs, form, n):
+    """The bf16 tile through K5 (`form` "self": 70 queries against 150 keys)
+    and K6b (stacked sets of n rows) against the JAX package's own Pallas
+    kernels in bf16, `fused_attention_packed` / `fused_cross_attention_stacked`
+    (interpret mode off the TPU), on the same bf16 inputs: ~70% valid rows,
+    a set without a valid key (its rows, and K6b's rows of its partner,
+    exactly zero on both sides). Both round the unnormalised probabilities
+    to bf16 before the product with V, the Pallas kernels against the row's
+    maximum, the tile against the running maximum of its 64-key steps, and
+    both add the fp32 ones for the sum; so they agree within 2**-7 abs + 2**-7
+    rel (a bf16 ulp, at most, in [1, 2))."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from gluefactory_tpu.ops import pallas_attention as jp
+
+    rng = np.random.RandomState(n + len(form))
+    sets = 3 if form == "self" else 4  # K6b: pairs (0, 2) and (1, 3)
+    nk = 150 if form == "self" else n
+    x = [rng.randn(sets, r, AD).astype(np.float32) for r in (n, nk, nk)]
+    mq, mk = rng.rand(sets, n) > 0.3, rng.rand(sets, nk) > 0.3
+    mk[-1] = False
+    jx = [jnp.asarray(a, jnp.bfloat16) for a in x]
+    tx = [torch.from_numpy(a).bfloat16() for a in x]
+    if form == "self":
+        ref = jp.fused_attention_packed(*jx, jnp.asarray(mq), jnp.asarray(mk), AH)
+        out, _ = fa.launch_attention_fwd(libs["attention"], None, *tx, torch.from_numpy(mq),
+                                         torch.from_numpy(mk), AH, SCALE)
+        zero = [sets - 1]
+    else:
+        ref = jnp.concatenate(jp.fused_cross_attention_stacked(jx[0], jx[2], jnp.asarray(mk),
+                                                               AH))
+        out, _ = fa.launch_cross_fwd_stacked(libs["attention"], None, tx[0], tx[2],
+                                             torch.from_numpy(mk), AH, SCALE)
+        zero = [1, sets - 1]
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    torch.testing.assert_close(out.float(), ref, atol=2.0**-7, rtol=2.0**-7)
+    for s in zero:
+        assert float(out[s].float().abs().max()) == 0.0 and float(ref[s].abs().max()) == 0.0
