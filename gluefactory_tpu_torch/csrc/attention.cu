@@ -9,7 +9,9 @@
 //   fused_cross_attention_packed  (:815, call _bidir_cross_packed_bnd :691)
 //     -> cross_fwd_pair_kernel
 //   _fused_attention_bwd_bhnd     (:202, body _attention_bwd_kernel :143)
-//     -> attn_bwd_delta_kernel, attn_bwd_dkv_kernel, attn_bwd_dq_kernel
+//     -> attn_bwd_delta_kernel, attn_bwd_dkv_kernel, attn_bwd_dq_kernel (fp32),
+//        attn_bwd_delta_bf16_kernel, attn_bwd_dkv_bf16_kernel,
+//        attn_bwd_dq_bf16_kernel (bf16)
 //   fused_attention               (:253, call _fused_attention_bhnd :116,
 //     body _attention_kernel :49)        -> attn_fwd_heads_kernel
 //   fused_cross_attention         (:854, call _bidir_cross_bhnd :567,
@@ -41,9 +43,12 @@
 //     p = exp(scale * q.k - lse) from the saved log-sum-exp, then
 //     dv = p^T do, dp = do v^T, ds = p (dp - delta) scale, dq = ds k,
 //     dk = ds^T q (seven products for five: sim and dp are built in both).
-//     It takes separate query and key sets and masks, because the cross
-//     backward calls it once a direction. Two calls on the same inputs give
-//     bit-identical gradients.
+//     At Dh = 64 that costs less than one kernel writing per-key-tile dq
+//     partials: with 128-key tiles at N = 512 those are four fp32 copies of
+//     dq, 134 MB written and read at (64, 512, 256), as much as all of the
+//     bf16 backward's I/O. It takes separate query and key sets and masks,
+//     because the cross backward calls it once a direction. Two calls on
+//     the same inputs give bit-identical gradients.
 //
 // Bound on the H100: at S = 64, N = 512, D = 256 the forward does 17 GFLOP
 // on 134 MB of fp32 I/O and the backward 43 GFLOP on 235 MB: both are
@@ -57,11 +62,10 @@
 // contraction order, so they never leave registers. The forward is the
 // FlashAttention-2 tile of attention_fwd.cuh (Q split once into registers,
 // 64-key tiles double-buffered, key tiles without a valid key skipped). In
-// the backward the block's own 64 rows stay in shared memory; the loop's
-// tiles of 32 rows are double-buffered by cp.async, which keeps a block at
-// 70 KB and 168 registers a thread: three blocks a multiprocessor. The
-// backward's bf16 instantiation widens its tiles to fp32 and runs all three
-// passes. The forwards' bf16 instantiations, the bf16 forms of
+// the fp32 backward the block's own 64 rows stay in shared memory; the
+// loop's tiles of 32 rows are double-buffered by cp.async, which keeps a
+// block at 70 KB and 168 registers a thread: three blocks a multiprocessor.
+// The forwards' bf16 instantiations, the bf16 forms of
 // _attention_kernel_packed (:319) and _bidir_cross_kernel_packed (:600), run
 // the bf16 tile of attention_fwd.cuh: 128 queries a block, bf16 tiles by
 // 16-byte cp.async in a two-stage ring (the fp32 tile's bf16 form widened
@@ -71,6 +75,36 @@
 // note says why). At S = 64, N = 512, D = 256 in bf16 the forward moves
 // 34 MB, 0.0202 ms at 3.35 TB/s, against 17 GFLOP / 989 TFLOP/s = 0.017 ms:
 // bound by bytes.
+//
+// The bf16 backward (the bf16 form of _attention_bwd_kernel,
+// pallas_attention.py:143, K7b of a `mp: True` training step) has kernels
+// of its own, its delta pass reading 16 bytes a lane. It was the fp32 design
+// run on widened data: every tile staged by one synchronous 2-byte load an
+// element into fp32 shared memory (70 KB a block; its double buffer
+// overlapped nothing) and every product three split-TF32 passes on operands
+// that are exact in one. Here Q, K, V and dO are bf16 in shared memory at row
+// stride 72 (17 KB of loop tiles, 37 KB a block), filled by 16-byte
+// cp.async (rows past the set zero-filled) into a two-stage ring, the next
+// tile's copy in flight while this tile's products run; the block's own
+// rows are read once into registers as A fragments (K and V in dk/dv, Q and
+// dO in dq). Every product is one pass of bf16 mma.sync m16n8k16 (twice the
+// TF32 rate, twice its contraction depth an instruction): s^T = K Q^T and
+// dp^T = V dO^T, dv += p^T dO and dk += ds^T Q (dO and Q by ldmatrix.trans);
+// s = Q K^T, dp = dO V^T and dq += ds K. p = 2^(s scale log2(e) - lse
+// log2(e)) by ex2.approx in fp32 (masked pairs and rows past the set exactly
+// 0), ds = p (dp - delta) scale from the fp32 p, and both are rounded to
+// bf16 as the next product's A operand straight from their C fragments, as
+// the Pallas kernel rounds p.astype(cdt) and ds.astype(cdt) (:177-198). Two
+// differences from it, chosen: dk, dv and dq accumulate in fp32 over the
+// whole loop and are rounded to bf16 once, at the store (the Pallas kernel
+// adds dk and dv into its bf16 output once a 256-query grid step, :195-198),
+// and delta is rowsum(do * o) of the forward's bf16 output (its delta is
+// rowsum(p dp) in fp32, :189). At S = 64, N = 512, D = 256 the bf16
+// backward moves 134 MB (q, k, v, o, do read, dq, dk, dv written), 0.040 ms
+// at 3.35 TB/s, against five products on the ~64% valid pairs, 27 GFLOP,
+// 0.028 ms at 989 TFLOP/s: bound by bytes. wgmma waits: tests/cuda_emu
+// cannot model its shared-memory descriptors, so a wgmma kernel could not
+// be run before the card.
 #include <type_traits>
 
 #include "attention_fwd.cuh"
@@ -209,8 +243,8 @@ __global__ void __launch_bounds__(Fwd<T>::kThreads, Fwd<T>::kBlocks) cross_fwd_h
 }
 
 // ------------------------------------------------------------ backward
-// K7b on the tensor cores: 64-row tiles, 4 warps a block, a warp owns 16 rows
-// of its block's tile. The staged tiles are fp32 in shared memory at row
+// K7b in fp32 on the tensor cores: 64-row tiles, 4 warps a block, a warp owns
+// 16 rows of its block's tile. The staged tiles are fp32 in shared memory at row
 // stride kBPad = 68 floats (272 bytes: 16-byte aligned rows), so every
 // fragment load below (ldmatrix row-wise; scalar down the columns: rows 2t,
 // columns g) is free of bank conflicts.
@@ -253,6 +287,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkv_kernel(
     const float* __restrict__ delta, const unsigned char* __restrict__ mq,
     const unsigned char* __restrict__ mk, T* __restrict__ dk, T* __restrict__ dv,
     int Nq, int Nk, Lay lq, Lay lk, float scale) {
+  static_assert(std::is_same<T, float>::value, "bf16 has its own kernels below");
   GF_DYN_SMEM(float, smem);
   float* Ks = smem;                  // [j][d]
   float* Vs = Ks + kBTileF;          // [j][d]
@@ -267,8 +302,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkv_kernel(
 
   auto stage_queries = [&](int it) {
     const int buf = it & 1, i0 = it * kStep;
-    gf::stage_rows<kStep, T>(Qs + buf * kStepF, q + qb, i0, Nq, lq.row);
-    gf::stage_rows<kStep, T>(dOs + buf * kStepF, dout + qb, i0, Nq, lq.row);
+    gf::stage_rows<kStep>(Qs + buf * kStepF, q + qb, i0, Nq, lq.row);
+    gf::stage_rows<kStep>(dOs + buf * kStepF, dout + qb, i0, Nq, lq.row);
     if (tid < kStep) {
       const int gi = i0 + tid;
       const bool in = gi < Nq;
@@ -279,8 +314,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkv_kernel(
     }
     gf::cp_async_commit();
   };
-  gf::stage_rows<kTile, T>(Ks, k + kb, j0, Nk, lk.row);
-  gf::stage_rows<kTile, T>(Vs, v + kb, j0, Nk, lk.row);
+  gf::stage_rows<kTile>(Ks, k + kb, j0, Nk, lk.row);
+  gf::stage_rows<kTile>(Vs, v + kb, j0, Nk, lk.row);
   stage_queries(0);
   bool kv[2];
   for (int r = 0; r < 2; ++r) {
@@ -372,6 +407,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(
     const float* __restrict__ delta, const unsigned char* __restrict__ mq,
     const unsigned char* __restrict__ mk, T* __restrict__ dq,
     int Nq, int Nk, Lay lq, Lay lk, float scale) {
+  static_assert(std::is_same<T, float>::value, "bf16 has its own kernels below");
   GF_DYN_SMEM(float, smem);
   float* Qs = smem;                 // [i][d]
   float* dOs = Qs + kBTileF;        // [i][d]
@@ -386,8 +422,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(
 
   auto stage_keys = [&](int it) {
     const int buf = it & 1, j0 = it * kStep;
-    gf::stage_rows<kStep, T>(Ks + buf * kStepF, k + kb, j0, Nk, lk.row);
-    gf::stage_rows<kStep, T>(Vs + buf * kStepF, v + kb, j0, Nk, lk.row);
+    gf::stage_rows<kStep>(Ks + buf * kStepF, k + kb, j0, Nk, lk.row);
+    gf::stage_rows<kStep>(Vs + buf * kStepF, v + kb, j0, Nk, lk.row);
     if (tid < kStep) {
       const int gj = j0 + tid;
       kval[buf * kStep + tid] =
@@ -395,8 +431,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(
     }
     gf::cp_async_commit();
   };
-  gf::stage_rows<kTile, T>(Qs, q + qb, i0, Nq, lq.row);
-  gf::stage_rows<kTile, T>(dOs, dout + qb, i0, Nq, lq.row);
+  gf::stage_rows<kTile>(Qs, q + qb, i0, Nq, lq.row);
+  gf::stage_rows<kTile>(dOs, dout + qb, i0, Nq, lq.row);
   stage_keys(0);
   bool qv[2];
   float rl[2], rd[2];
@@ -472,6 +508,340 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(
 #pragma unroll
     for (int nd = 0; nd < 8; ++nd) gf::store2(dq + at + 8 * nd, dqa[nd][2 * r], dqa[nd][2 * r + 1]);
   }
+}
+
+// ------------------------------------------------------ backward, bf16
+// K7b in bf16 (see the note at the top): the fp32 kernels' structure on bf16
+// tiles. The block's own kRows rows (keys in dk/dv, queries in dq), a warp
+// for every 16, are read once into registers as A fragments; the loop's
+// tiles of kLoop rows are bf16 in shared memory at row stride kStride (144
+// bytes: the eight rows of an ldmatrix on distinct banks), filled by 16-byte
+// cp.async into a two-stage ring, the next tile's copy in flight while this
+// tile's products run. Every product is one pass of mma.sync m16n8k16 (bf16
+// in, fp32 accumulators); p and ds are rounded to bf16 as the A operand of
+// the next product, straight from the C fragments.
+using bf16 = __nv_bfloat16;
+constexpr int kStride = Fwd<bf16>::kStride;  // row stride of the bf16 tiles, as the forward's
+
+// A bf16 backward kernel's block: `rows` rows of its own, `loop` rows a
+// loop tile, `blocks` blocks a multiprocessor asked of ptxas (a register cap)
+template <int rows, int loop, int blocks>
+struct BwdShape {
+  static constexpr int kRows = rows, kLoop = loop, kBlocks = blocks;
+  static constexpr int kThreads = 2 * rows;  // a warp for every 16 rows
+  // the block's two tiles and two stages of the loop's two tiles, in bf16
+  static constexpr int kTiles = (2 * kRows + 4 * kLoop) * kStride * 2;
+};
+using Dkv = BwdShape<128, 32, 2>;  // dk/dv: 128 keys, 32-query tiles
+using Dq = BwdShape<128, 32, 2>;   // dq: 128 queries, 32-key tiles
+// and lse log2(e) and delta of the queries of two stages
+constexpr int kDkvBf16Smem = Dkv::kTiles + 2 * 2 * Dkv::kLoop * (int)sizeof(float);
+// and the validity bytes of the keys of two stages
+constexpr int kDqBf16Smem = Dq::kTiles + 2 * Dq::kLoop;
+
+// delta[s, h, i] = sum_d do[s, h, i, d] * o[s, h, i, d] in bf16: eight lanes
+// a row, 16 bytes (eight channels) a lane, summed over the eight by three
+// shuffles; four rows a warp
+__global__ void __launch_bounds__(kThreads) attn_bwd_delta_bf16_kernel(
+    const bf16* __restrict__ o, const bf16* __restrict__ dout, float* __restrict__ delta,
+    int S, int Nq, Lay lq, int H) {
+  const size_t row = ((size_t)blockIdx.x * kThreads + threadIdx.x) / 8;
+  const int part = threadIdx.x % 8;
+  const bool in = row < (size_t)S * H * Nq;  // every lane goes on to the shuffles
+  float acc = 0.f;
+  if (in) {
+    const int i = row % Nq, h = (row / Nq) % H, s = row / ((size_t)Nq * H);
+    const size_t at = s * lq.set + h * lq.head + (size_t)i * lq.row + 8 * part;
+    const uint4 a = *reinterpret_cast<const uint4*>(o + at);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + at);
+    const unsigned wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      acc = fmaf(gf::bf16_lo(wa[w]), gf::bf16_lo(wb[w]), acc);
+      acc = fmaf(gf::bf16_hi(wa[w]), gf::bf16_hi(wb[w]), acc);
+    }
+  }
+  for (int m = 4; m > 0; m >>= 1) acc += gf::shfl_xor(acc, m);
+  if (in && part == 0) delta[row] = acc;
+}
+
+// Rows [r0, r0 + rows) of one head (row stride ld) into dst at row stride
+// kStride, eight 16-byte cp.async a row by the block's `threads` (the caller
+// commits and waits); rows from n on are zero-filled.
+template <int rows, int threads>
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* __restrict__ src, int r0,
+                                           int n, int ld) {
+  for (int e = threadIdx.x; e < rows * 8; e += threads) {
+    const int r = e / 8, c = e % 8 * 8;
+    const bool in = r0 + r < n;
+    gf::cp_async16(dst + r * kStride + c, src + (size_t)(in ? r0 + r : 0) * ld + c, in);
+  }
+}
+
+// This warp's 16 rows of a [row][d] tile as the A fragments of four k16 steps
+__device__ __forceinline__ void frags_a(unsigned f[4][4], const bf16* tile) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    gf::ldsm_x4(f[kk], tile + (warp * 16 + lane % 16) * kStride + kk * 16 + lane / 16 * 8);
+}
+
+// c[n] += sum_d a[m][d] tile[n][d] over the `loop` rows n of a loop tile:
+// c holds (m g (+8), n 8nt + 2t (+1)); B by ldmatrix down the tile's rows
+template <int loop>
+__device__ __forceinline__ void product_rows(float c[][4], const unsigned a[4][4],
+                                             const bf16* tile) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int nj = 0; nj < loop / 16; ++nj) {
+      unsigned b[4];  // rows 16nj.. as two n8 tiles, d 16kk..
+      gf::ldsm_x4(b, tile + (nj * 16 + lane / 16 * 8 + lane % 8) * kStride + kk * 16 +
+                         lane / 8 % 2 * 8);
+      gf::mma_bf16_m16n8k16(c[2 * nj], a[kk], b);
+      gf::mma_bf16_m16n8k16(c[2 * nj + 1], a[kk], b + 2);
+    }
+}
+
+// acc[m][d] += sum_n c[m][n] tile[n][d] over the loop tile's rows n, c
+// rounded to bf16 (the C fragments of two n8 tiles make one k16 A fragment);
+// B by ldmatrix.trans
+template <int loop>
+__device__ __forceinline__ void product_cols(float acc[8][4], const float c[][4],
+                                             const bf16* tile) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < loop / 16; ++kk) {
+    const unsigned a[4] = {gf::pack_bf16(c[2 * kk][0], c[2 * kk][1]),
+                           gf::pack_bf16(c[2 * kk][2], c[2 * kk][3]),
+                           gf::pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]),
+                           gf::pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3])};
+#pragma unroll
+    for (int dj = 0; dj < 4; ++dj) {
+      unsigned b[4];  // rows 16kk.., d 16dj.. as two n8 tiles
+      gf::ldsm_x4_trans(b, tile + (kk * 16 + lane / 8 % 2 * 8 + lane % 8) * kStride + dj * 16 +
+                               lane / 16 * 8);
+      gf::mma_bf16_m16n8k16(acc[2 * dj], a, b);
+      gf::mma_bf16_m16n8k16(acc[2 * dj + 1], a, b + 2);
+    }
+  }
+}
+
+// This warp's rows row0 + g (+8) of acc (d 8nd + 2t (+1)), rounded to bf16
+// once, into out at row stride ld; rows from n on are left out
+__device__ __forceinline__ void store_rows(bf16* out, const float acc[8][4], int row0, int n,
+                                           int ld) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd)
+      gf::store2(out + (size_t)row * ld + 8 * nd + 2 * t, acc[nd][2 * r], acc[nd][2 * r + 1]);
+  }
+}
+
+// grid (ceil(Nk / kRows), H, S). The block owns keys [j0, j0 + kRows) and
+// their dk, dv; a warp owns 16 of them. Per query tile: s^T = K Q^T and
+// dp^T = V dO^T as C fragments, p^T and ds^T in place, then dv += p^T dO
+// and dk += ds^T Q. K's and V's fragments are read again each tile: kept
+// in registers they take the kernel past the 128 registers of two 8-warp
+// blocks a multiprocessor.
+__global__ void __launch_bounds__(Dkv::kThreads, Dkv::kBlocks) attn_bwd_dkv_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const unsigned char* __restrict__ mq,
+    const unsigned char* __restrict__ mk, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    int Nq, int Nk, Lay lq, Lay lk, float scale) {
+  constexpr int kR = Dkv::kRows, kL = Dkv::kLoop, kT = Dkv::kThreads, kS = kStride;
+  GF_DYN_SMEM(bf16, smem);
+  bf16* Ks = smem;                 // [kR][kS]
+  bf16* Vs = Ks + kR * kS;         // [kR][kS]
+  bf16* Qs = Vs + kR * kS;         // [2][kL][kS]
+  bf16* dOs = Qs + 2 * kL * kS;    // [2][kL][kS]
+  float* rows = reinterpret_cast<float*>(dOs + 2 * kL * kS);  // [2][lse log2(e), delta][kL]
+
+  const int s = blockIdx.z, h = blockIdx.y, H = gridDim.y, j0 = blockIdx.x * kR;
+  const int tid = threadIdx.x, warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+  const size_t qb = s * lq.set + h * lq.head, kb = s * lk.set + h * lk.head;
+  const size_t rb = ((size_t)s * H + h) * Nq;
+
+  // thread tid < kL: query row i's lse log2(e) (+inf for a row that is
+  // invalid or past the set: its p is then exactly 0) and delta
+  float rl = 0.f, rd = 0.f;
+  auto row_values = [&](int i) {
+    const bool ok = i < Nq && (mq == nullptr || mq[(size_t)s * Nq + i]);
+    rl = ok ? lse[rb + i] * kLog2e : INFINITY;
+    rd = ok ? delta[rb + i] : 0.f;
+  };
+  auto stage_queries = [&](int it) {  // into stage it % 2 of the ring
+    const int buf = it & 1;
+    stage_bf16<kL, kT>(Qs + buf * kL * kS, q + qb, it * kL, Nq, lq.row);
+    stage_bf16<kL, kT>(dOs + buf * kL * kS, dout + qb, it * kL, Nq, lq.row);
+  };
+  stage_bf16<kR, kT>(Ks, k + kb, j0, Nk, lk.row);
+  stage_bf16<kR, kT>(Vs, v + kb, j0, Nk, lk.row);
+  stage_queries(0);
+  gf::cp_async_commit();
+  if (tid < kL) {
+    row_values(tid);
+    rows[tid] = rl;
+    rows[kL + tid] = rd;
+  }
+  bool kv[2];  // keys j0 + 16 warp + g (+8)
+  for (int r = 0; r < 2; ++r) {
+    const int j = j0 + warp * 16 + g + 8 * r;
+    kv[r] = j < Nk && (mk == nullptr || mk[(size_t)s * Nk + j]);
+  }
+
+  float dka[8][4] = {}, dva[8][4] = {};  // (key g (+8), d 8nd + 2t (+1))
+  const float scale2 = scale * kLog2e;
+  const int tiles = (Nq + kL - 1) / kL;
+  for (int it = 0; it < tiles; ++it) {
+    gf::cp_async_wait<0>();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    if (it + 1 < tiles) {
+      stage_queries(it + 1);  // into tile it - 1's stage
+      if (tid < kL) row_values((it + 1) * kL + tid);  // stored after this tile's products
+    }
+    gf::cp_async_commit();
+    const bf16* Qt = Qs + (it & 1) * kL * kS;
+    const bf16* dOt = dOs + (it & 1) * kL * kS;
+    const float* rw = rows + (it & 1) * 2 * kL;
+
+    // s^T, dp^T: (key g (+8), query 8nt + 2t (+1) of the tile)
+    float st[kL / 8][4] = {}, dpt[kL / 8][4] = {};
+    {
+      unsigned a[4][4];
+      frags_a(a, Ks);
+      product_rows<kL>(st, a, Qt);
+      frags_a(a, Vs);
+      product_rows<kL>(dpt, a, dOt);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kL / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * nt + 2 * t + (e & 1);
+        const float p = kv[e >> 1] ? gf::exp2_approx(fmaf(st[nt][e], scale2, -rw[i])) : 0.f;
+        st[nt][e] = p;
+        dpt[nt][e] = p * (dpt[nt][e] - rw[kL + i]) * scale;  // ds
+      }
+    product_cols<kL>(dva, st, dOt);  // dv[j][d] += sum_i p[i][j] do[i][d]
+    product_cols<kL>(dka, dpt, Qt);  // dk[j][d] += sum_i ds[i][j] q[i][d]
+    if (it + 1 < tiles && tid < kL) {  // tile it - 1's values were read before the barrier
+      float* nr = rows + ((it + 1) & 1) * 2 * kL;
+      nr[tid] = rl;
+      nr[kL + tid] = rd;
+    }
+  }
+  gf::cp_async_wait<0>();  // nothing in flight when the block ends
+  store_rows(dk + kb, dka, j0 + warp * 16, Nk, lk.row);
+  store_rows(dv + kb, dva, j0 + warp * 16, Nk, lk.row);
+}
+
+// grid (ceil(Nq / kRows), H, S). The block owns queries [i0, i0 + kRows) and
+// their dq; a warp owns 16 of them and keeps their Q and dO fragments in
+// registers. Per key tile: s = Q K^T and dp = dO V^T as C fragments, ds in
+// place, then dq += ds K. A key tile without a valid key is skipped.
+__global__ void __launch_bounds__(Dq::kThreads, Dq::kBlocks) attn_bwd_dq_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const unsigned char* __restrict__ mq,
+    const unsigned char* __restrict__ mk, bf16* __restrict__ dq,
+    int Nq, int Nk, Lay lq, Lay lk, float scale) {
+  constexpr int kR = Dq::kRows, kL = Dq::kLoop, kT = Dq::kThreads, kS = kStride;
+  GF_DYN_SMEM(bf16, smem);
+  bf16* Qs = smem;                 // [kR][kS]
+  bf16* dOs = Qs + kR * kS;        // [kR][kS]
+  bf16* Ks = dOs + kR * kS;        // [2][kL][kS]
+  bf16* Vs = Ks + 2 * kL * kS;     // [2][kL][kS]
+  unsigned char* kval = reinterpret_cast<unsigned char*>(Vs + 2 * kL * kS);  // [2][kL]
+
+  const int s = blockIdx.z, h = blockIdx.y, H = gridDim.y, i0 = blockIdx.x * kR;
+  const int tid = threadIdx.x, warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+  const size_t qb = s * lq.set + h * lq.head, kb = s * lk.set + h * lk.head;
+  const size_t rb = ((size_t)s * H + h) * Nq;
+
+  unsigned char kn = 0;  // thread tid < kL: key j valid
+  auto key_valid = [&](int j) { kn = j < Nk && (mk == nullptr || mk[(size_t)s * Nk + j]); };
+  auto stage_keys = [&](int it) {  // into stage it % 2 of the ring
+    const int buf = it & 1;
+    stage_bf16<kL, kT>(Ks + buf * kL * kS, k + kb, it * kL, Nk, lk.row);
+    stage_bf16<kL, kT>(Vs + buf * kL * kS, v + kb, it * kL, Nk, lk.row);
+  };
+  stage_bf16<kR, kT>(Qs, q + qb, i0, Nq, lq.row);
+  stage_bf16<kR, kT>(dOs, dout + qb, i0, Nq, lq.row);
+  stage_keys(0);
+  gf::cp_async_commit();
+  if (tid < kL) {
+    key_valid(tid);
+    kval[tid] = kn;
+  }
+  // queries i0 + 16 warp + g (+8): lse log2(e) (+inf for a row that is
+  // invalid or past the set: its p is then exactly 0) and delta
+  float rl[2], rd[2];
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + warp * 16 + g + 8 * r;
+    const bool ok = i < Nq && (mq == nullptr || mq[(size_t)s * Nq + i]);
+    rl[r] = ok ? lse[rb + i] * kLog2e : INFINITY;
+    rd[r] = ok ? delta[rb + i] : 0.f;
+  }
+  gf::cp_async_wait<0>();
+  __syncthreads();
+  unsigned qf[4][4], of[4][4];
+  frags_a(qf, Qs);
+  frags_a(of, dOs);
+
+  float dqa[8][4] = {};  // (query g (+8), d 8nd + 2t (+1))
+  const float scale2 = scale * kLog2e;
+  const int tiles = (Nk + kL - 1) / kL;
+  for (int it = 0; it < tiles; ++it) {
+    gf::cp_async_wait<0>();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    if (it + 1 < tiles) {
+      stage_keys(it + 1);  // into tile it - 1's stage
+      if (tid < kL) key_valid((it + 1) * kL + tid);  // stored after this tile's products
+    }
+    gf::cp_async_commit();
+    const bf16* Kt = Ks + (it & 1) * kL * kS;
+    const bf16* Vt = Vs + (it & 1) * kL * kS;
+    const unsigned char* kv = kval + (it & 1) * kL;
+    // the tile's validity bytes, four a word: skip a tile without a valid
+    // key, take it without masking when every key is valid
+    unsigned any = 0, all = 1;
+#pragma unroll
+    for (int wd = 0; wd < kL / 4; ++wd) {
+      const unsigned word = reinterpret_cast<const unsigned*>(kv)[wd];
+      any |= word;
+      all &= word == 0x01010101u;
+    }
+    if (any) {  // the same for the whole block
+      unsigned bits = 0;  // bit 2nt + c: key 8nt + 2t + c of this lane's columns
+#pragma unroll
+      for (int nt = 0; nt < kL / 8; ++nt)
+        bits |= (unsigned)(kv[nt * 8 + 2 * t] | kv[nt * 8 + 2 * t + 1] << 1) << (2 * nt);
+      // s, dp: (query g (+8), key 8nt + 2t (+1) of the tile)
+      float sa[kL / 8][4] = {}, dpa[kL / 8][4] = {};
+      product_rows<kL>(sa, qf, Kt);
+      product_rows<kL>(dpa, of, Vt);
+#pragma unroll
+      for (int nt = 0; nt < kL / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool valid = all || (bits >> (2 * nt + (e & 1)) & 1u);
+          const float p = valid ? gf::exp2_approx(fmaf(sa[nt][e], scale2, -rl[r])) : 0.f;
+          sa[nt][e] = p * (dpa[nt][e] - rd[r]) * scale;  // ds
+        }
+      product_cols<kL>(dqa, sa, Kt);  // dq[i][d] += sum_j ds[i][j] k[j][d]
+    }
+    if (it + 1 < tiles && tid < kL) kval[((it + 1) & 1) * kL + tid] = kn;
+  }
+  gf::cp_async_wait<0>();  // nothing in flight when the block ends
+  store_rows(dq + qb, dqa, i0 + warp * 16, Nq, lq.row);
 }
 
 // ------------------------------------------------------------ launchers
@@ -552,19 +922,39 @@ int launch_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                     cudaStream_t st) {
   if (D != H * kDh || (layout != kPacked && layout != kHeads)) return (int)cudaErrorInvalidValue;
   const Lay lq = make_lay(layout, Nq, D, H), lk = make_lay(layout, Nk, D, H);
-  static cudaError_t attr_kv = gf::allow_smem(attn_bwd_dkv_kernel<T>, kDkvSmem);
-  static cudaError_t attr_q = gf::allow_smem(attn_bwd_dq_kernel<T>, kDqSmem);
-  if (attr_kv != cudaSuccess) return (int)attr_kv;
-  if (attr_q != cudaSuccess) return (int)attr_q;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  if constexpr (f32) {
+    static cudaError_t attr_kv = gf::allow_smem(attn_bwd_dkv_kernel<T>, kDkvSmem);
+    static cudaError_t attr_q = gf::allow_smem(attn_bwd_dq_kernel<T>, kDqSmem);
+    if (attr_kv != cudaSuccess) return (int)attr_kv;
+    if (attr_q != cudaSuccess) return (int)attr_q;
+  } else {
+    static cudaError_t attr_kv = gf::allow_smem(attn_bwd_dkv_bf16_kernel, kDkvBf16Smem);
+    static cudaError_t attr_q = gf::allow_smem(attn_bwd_dq_bf16_kernel, kDqBf16Smem);
+    if (attr_kv != cudaSuccess) return (int)attr_kv;
+    if (attr_q != cudaSuccess) return (int)attr_q;
+  }
   const size_t rows = (size_t)S * H * Nq, warps = kThreads / 32;
-  GF_LAUNCH(attn_bwd_delta_kernel<T>, dim3((unsigned)((rows + warps - 1) / warps)), kThreads, 0,
-            st, (const T*)o, (const T*)dout, delta, S, Nq, lq, H);
-  GF_LAUNCH(attn_bwd_dkv_kernel<T>, dim3((Nk + kTile - 1) / kTile, H, S), kThreads, kDkvSmem,
-            st, (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
-            (const float*)delta, mq, mk, (T*)dk, (T*)dv, Nq, Nk, lq, lk, scale);
-  GF_LAUNCH(attn_bwd_dq_kernel<T>, dim3((Nq + kTile - 1) / kTile, H, S), kThreads, kDqSmem,
-            st, (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
-            (const float*)delta, mq, mk, (T*)dq, Nq, Nk, lq, lk, scale);
+  if constexpr (f32) {
+    GF_LAUNCH(attn_bwd_delta_kernel<T>, dim3((unsigned)((rows + warps - 1) / warps)), kThreads,
+              0, st, (const T*)o, (const T*)dout, delta, S, Nq, lq, H);
+    GF_LAUNCH(attn_bwd_dkv_kernel<T>, dim3((Nk + kTile - 1) / kTile, H, S), kThreads, kDkvSmem,
+              st, (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
+              (const float*)delta, mq, mk, (T*)dk, (T*)dv, Nq, Nk, lq, lk, scale);
+    GF_LAUNCH(attn_bwd_dq_kernel<T>, dim3((Nq + kTile - 1) / kTile, H, S), kThreads, kDqSmem,
+              st, (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
+              (const float*)delta, mq, mk, (T*)dq, Nq, Nk, lq, lk, scale);
+  } else {
+    GF_LAUNCH(attn_bwd_delta_bf16_kernel, dim3((unsigned)((rows * 8 + kThreads - 1) / kThreads)),
+              kThreads, 0, st, (const T*)o, (const T*)dout, delta, S, Nq, lq, H);
+    GF_LAUNCH(attn_bwd_dkv_bf16_kernel, dim3((Nk + Dkv::kRows - 1) / Dkv::kRows, H, S),
+              Dkv::kThreads, kDkvBf16Smem, st, (const T*)q, (const T*)k, (const T*)v,
+              (const T*)dout, lse, (const float*)delta, mq, mk, (T*)dk, (T*)dv, Nq, Nk, lq, lk,
+              scale);
+    GF_LAUNCH(attn_bwd_dq_bf16_kernel, dim3((Nq + Dq::kRows - 1) / Dq::kRows, H, S),
+              Dq::kThreads, kDqBf16Smem, st, (const T*)q, (const T*)k, (const T*)v,
+              (const T*)dout, lse, (const float*)delta, mq, mk, (T*)dq, Nq, Nk, lq, lk, scale);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -94,24 +94,15 @@ struct FwdTile<__nv_bfloat16> {
 };
 
 // Rows [r0, r0 + rows) of one head (row stride ld) into dst[r][0..64) at
-// row stride kAttnPad, in fp32; rows from n on, and rows whose `valid` byte
-// is 0, are zero. fp32 goes by cp.async (the caller commits and waits),
-// bf16 (the backward's) by loads that widen.
-template <int rows, class T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, int r0, int n,
-                                           int ld, const unsigned char* valid = nullptr) {
-  if constexpr (std::is_same<T, float>::value) {
-    for (int e = threadIdx.x; e < rows * kAttnDh / 4; e += kAttnThreads) {
-      const int r = e / (kAttnDh / 4), c = e % (kAttnDh / 4) * 4;
-      const bool in = r0 + r < n && (valid == nullptr || valid[r0 + r]);
-      cp_async16(dst + r * kAttnPad + c, in ? src + (size_t)(r0 + r) * ld + c : src, in);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * kAttnDh; e += kAttnThreads) {
-      const int r = e / kAttnDh, d = e % kAttnDh;
-      const bool in = r0 + r < n && (valid == nullptr || valid[r0 + r]);
-      dst[r * kAttnPad + d] = in ? to_f(src[(size_t)(r0 + r) * ld + d]) : 0.f;
-    }
+// row stride kAttnPad, in fp32, by cp.async (the caller commits and waits);
+// rows from n on, and rows whose `valid` byte is 0, are zero.
+template <int rows>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int r0,
+                                           int n, int ld, const unsigned char* valid = nullptr) {
+  for (int e = threadIdx.x; e < rows * kAttnDh / 4; e += kAttnThreads) {
+    const int r = e / (kAttnDh / 4), c = e % (kAttnDh / 4) * 4;
+    const bool in = r0 + r < n && (valid == nullptr || valid[r0 + r]);
+    cp_async16(dst + r * kAttnPad + c, in ? src + (size_t)(r0 + r) * ld + c : src, in);
   }
 }
 
@@ -136,15 +127,15 @@ __device__ void attn_fwd_tile(const T* __restrict__ q, const T* __restrict__ k,
 
   auto stage_keys = [&](int jt) {
     const int buf = jt & 1, j0 = jt * kTile;
-    stage_rows<kTile, T>(Ks + buf * kTileF, k, j0, nk, ld, mk);
-    stage_rows<kTile, T>(Vs + buf * kTileF, v, j0, nk, ld, mk);
+    stage_rows<kTile>(Ks + buf * kTileF, k, j0, nk, ld, mk);
+    stage_rows<kTile>(Vs + buf * kTileF, v, j0, nk, ld, mk);
     if (tid < kTile) {
       const int j = j0 + tid;
       kval[buf * kTile + tid] = j < nk && (mk == nullptr || mk[j]);
     }
     cp_async_commit();
   };
-  stage_rows<kTile, T>(Ks + kTileF, q, i0, nq, ld);
+  stage_rows<kTile>(Ks + kTileF, q, i0, nq, ld);
   stage_keys(0);
 
   const float kNone = -1e30f, scale_log2 = scale * 1.4426950408889634f;

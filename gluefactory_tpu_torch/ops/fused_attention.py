@@ -198,7 +198,7 @@ def fused_attention_backward(q, k, v, out, lse, mask_q, mask_k, dout, num_heads:
             return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
         return plain.attention_backward(q, k, v, mask_q, mask_k, dout, num_heads, scale)
     q, k, v, out, dout, lse, mask_q, mask_k = map(_c, (q, k, v, out, dout, lse, mask_q, mask_k))
-    q, k, v, dout = map(_aligned16, (q, k, v, dout))
+    q, k, v, out, dout = map(_aligned16, (q, k, v, out, dout))
     if heads:
         _check_heads("fused_attention_backward", (q, k, v, out, dout),
                      ((q, mask_q), (k, mask_k)))

@@ -43,6 +43,9 @@ struct alignas(16) float4 {
 struct alignas(8) float2 {
   float x, y;
 };
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
 
 typedef void* cudaStream_t;

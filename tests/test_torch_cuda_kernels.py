@@ -223,13 +223,16 @@ def test_tf32_split_on_the_card(gen, tmp_path):
         assert err < 2e-6 if split else err > 1e-4, (split, err)
 
 
-@pytest.mark.parametrize("heads", [False, True])
-def test_attention_backward_is_deterministic(gen, heads):
+@pytest.mark.parametrize("heads,dtype", [
+    pytest.param(False, torch.float32, id="False"), pytest.param(True, torch.float32, id="True"),
+    pytest.param(False, torch.bfloat16, id="False-bf16"),
+    pytest.param(True, torch.bfloat16, id="True-bf16")])
+def test_attention_backward_is_deterministic(gen, heads, dtype):
     """K7b has no atomics: two calls on the same inputs give bit-identical
-    gradients, on either layout, with ragged lengths."""
+    gradients, on either layout, in either type, with ragged lengths."""
     s, nq, nk = 3, 200, 150
     shape = (lambda n: (s, 4, n, 64)) if heads else (lambda n: (s, n, D))
-    q, k, v, do = (_rn(gen, *shape(n)) for n in (nq, nk, nk, nq))
+    q, k, v, do = (_rn(gen, *shape(n), dtype=dtype) for n in (nq, nk, nk, nq))
     mq = torch.rand(s, nq, generator=gen, device="cuda") > 0.2
     mk = torch.rand(s, nk, generator=gen, device="cuda") > 0.2
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]

@@ -339,12 +339,28 @@ def test_attention_heads_kernels_match_plain(libs, dtype, masked):
             _close(g, leaf.grad, dtype)
 
 
-@pytest.mark.parametrize("heads", [False, True])
-def test_attention_backward_kernels_ragged_tiles(libs, heads):
-    """K7b with five 32-row query tiles (both buffers of its double-buffered
-    loop, each more than once) and fewer keys than one 64-row tile, fp32, on
-    either layout."""
-    _, rn, mask = _attn_inputs(torch.float32, 60 + heads)
+def _close_k7b(grads, refs):
+    """The bf16 K7b against the fp32 formula: chip_smoke.py's bar K7B_BF16,
+    every gradient within 2**-6 max|ref| + 2**-7 |ref| and its mean abs err
+    within 2**-10 max|ref| (the kernels round p and ds to bf16 as their
+    products' operands and the gradients once, at the store; the formula
+    keeps fp32)."""
+    for g, r in zip(grads, refs):
+        g, r = g.float(), r.float()
+        top = float(r.abs().max())
+        torch.testing.assert_close(g, r, atol=2.0**-6 * top, rtol=2.0**-7)
+        assert float((g - r).abs().mean()) <= 2.0**-10 * top
+
+
+@pytest.mark.parametrize("heads,dtype", [
+    pytest.param(False, torch.float32, id="False"), pytest.param(True, torch.float32, id="True"),
+    pytest.param(False, torch.bfloat16, id="False-bf16"),
+    pytest.param(True, torch.bfloat16, id="True-bf16")])
+def test_attention_backward_kernels_ragged_tiles(libs, heads, dtype):
+    """K7b with five 32-row query tiles (both stages of its loop's ring, each
+    more than once) and fewer keys than one 64-row tile, in fp32 and bf16,
+    on either layout."""
+    _, rn, mask = _attn_inputs(dtype, 60 + heads)
     s, nq, nk = 1, 130, 47
     shape = (lambda n: (s, AH, n, 64)) if heads else (lambda n: (s, n, AD))
     q, k, v, do = rn(*shape(nq)), rn(*shape(nk)), rn(*shape(nk)), rn(*shape(nq))
@@ -357,6 +373,9 @@ def test_attention_backward_kernels_ragged_tiles(libs, heads):
     grads = fa.launch_attention_bwd(lib, None, q, k, v, out, lse, mq, mk, do, AH, SCALE)
     ref = (plain.attention_backward_heads(q, k, v, mq, mk, do, SCALE) if heads
            else plain.attention_backward(q, k, v, mq, mk, do, AH, SCALE))
+    if dtype == torch.bfloat16:
+        _close_k7b(grads, ref)
+        return
     for g, r in zip(grads, ref):
         _close(g, r, torch.float32)
 
@@ -441,3 +460,72 @@ def test_bf16_forward_tile_matches_the_pallas_kernels(libs, form, n):
     torch.testing.assert_close(out.float(), ref, atol=2.0**-7, rtol=2.0**-7)
     for s in zero:
         assert float(out[s].float().abs().max()) == 0.0 and float(ref[s].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("form,n", [("self", 70), ("stacked", 70), ("stacked", 150)])
+def test_bf16_backward_matches_the_pallas_kernel(libs, form, n):
+    """The bf16 K7b (its dk/dv and dq kernels, after the bf16 forward tile
+    for the log-sum-exp) against the JAX package's own Pallas backward in
+    bf16, `jax.vjp` of `fused_attention_packed` (`form` "self": 70 queries
+    against 150 keys) and of `fused_cross_attention_stacked` (stacked sets of
+    n rows; one K7b call a direction, dqk = dq + dk summed in bf16 on both
+    sides), in interpret mode off the TPU, on the same bf16 inputs: ~70%
+    valid rows, a set without a valid key (its gradients, and in the cross
+    form its partner's, exactly zero on both sides). Both round p and ds to
+    bf16 as their products' operands; at these lengths the Pallas kernel
+    runs one 256-query grid step, so it rounds dk and dv once, as the
+    kernels do. They differ in delta, rowsum(dO o) of the bf16 forward's
+    output here and rowsum(p dp) in fp32 there, and in p, rebuilt from the
+    forward's log-sum-exp here and the Pallas kernel's own softmax there:
+    that moves some gradients across a bf16 rounding, so they agree within
+    2**-8 max|ref| + 2**-7 |ref| (half a bf16 ulp at the gradient's largest
+    magnitude, one ulp at its own), mean abs err within 2**-12 max|ref|. dv
+    takes neither delta nor ds: with p rounded alike its mean abs err is
+    within 2**-16 max|ref| (readings ~1e-7; the fp32 p of the earlier
+    kernel read 6e-5-8e-5)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from gluefactory_tpu.ops import pallas_attention as jp
+
+    rng = np.random.RandomState(n + len(form) + 1)
+    sets = 3 if form == "self" else 4  # K6b: pairs (0, 2) and (1, 3)
+    nk = 150 if form == "self" else n
+    x = [rng.randn(sets, r, AD).astype(np.float32) for r in (n, nk, nk, n)]
+    mq, mk = rng.rand(sets, n) > 0.3, rng.rand(sets, nk) > 0.3
+    mk[-1] = False
+    jx = [jnp.asarray(a, jnp.bfloat16) for a in x]
+    tx = [torch.from_numpy(a).bfloat16() for a in x]
+    lib = libs["attention"]
+    if form == "self":
+        jm = (jnp.asarray(mq), jnp.asarray(mk))
+        _, vjp = jax.vjp(lambda q, k, v: jp.fused_attention_packed(q, k, v, *jm, AH), *jx[:3])
+        ref = vjp(jx[3])
+        tq, tk = torch.from_numpy(mq), torch.from_numpy(mk)
+        out, lse = fa.launch_attention_fwd(lib, None, *tx[:3], tq, tk, AH, SCALE)
+        got = fa.launch_attention_bwd(lib, None, *tx[:3], out, lse, tq, tk, tx[3], AH, SCALE)
+        zero = [sets - 1]
+    else:
+        b = sets // 2
+        _, vjp = jax.vjp(
+            lambda qk, v: jp.fused_cross_attention_stacked(qk, v, jnp.asarray(mk), AH),
+            jx[0], jx[2])
+        ref = vjp((jx[3][:b], jx[3][b:]))
+        qk, v, g, m = tx[0], tx[2], tx[3], torch.from_numpy(mk)
+        out, lse = fa.launch_cross_fwd_stacked(lib, None, qk, v, m, AH, SCALE)
+        lo, hi = slice(0, b), slice(b, sets)
+        dq0, dk1, dv1 = fa.launch_attention_bwd(lib, None, qk[lo], qk[hi], v[hi], out[lo],
+                                                lse[lo], m[lo], m[hi], g[lo], AH, SCALE)
+        dq1, dk0, dv0 = fa.launch_attention_bwd(lib, None, qk[hi], qk[lo], v[lo], out[hi],
+                                                lse[hi], m[hi], m[lo], g[hi], AH, SCALE)
+        got = (torch.cat([dq0 + dk0, dk1 + dq1]), torch.cat([dv0, dv1]))
+        zero = [1, sets - 1]
+    for i, (g_, r) in enumerate(zip(got, ref)):
+        r = torch.from_numpy(np.array(r.astype(jnp.float32)))
+        top = float(r.abs().max())
+        torch.testing.assert_close(g_.float(), r, atol=2.0**-8 * top, rtol=2.0**-7)
+        mean = float((g_.float() - r).abs().mean())
+        assert mean <= (2.0**-16 if i == len(got) - 1 else 2.0**-12) * top, (i, mean / top)
+        for z in zero:
+            assert float(g_[z].float().abs().max()) == 0.0 and float(r[z].abs().max()) == 0.0
