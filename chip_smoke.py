@@ -255,10 +255,14 @@ def timed_median(fn, iters: int, warmup: int = 2) -> float:
     return timed(fn, iters, warmup, reps=5)
 
 
-def device_ms(fn, iters: int, warmup: int = 2) -> float:
+def device_ms(fn, iters: int, warmup: int = 2, top: int = 0):
     """Milliseconds per call of the kernels' own device time (their sum, by
     torch.profiler), without the host's gaps between launches: for a shape
-    at which one call's Python and launch overhead outlasts its kernels."""
+    at which one call's Python and launch overhead outlasts its kernels.
+    With `top`, (those ms, the launches a call, the `top` kernels by device
+    time as (name, ms a call))."""
+    import collections
+
     import torch
 
     for _ in range(warmup):
@@ -269,11 +273,17 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.device_time_total for e in kernels)
     if total <= 0:
         fail("device_ms: the profiler recorded no kernel")
-    return total / 1e3 / iters
+    if not top:
+        return total / 1e3 / iters
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name[:48]] += e.device_time_total
+    return (total / 1e3 / iters, len(kernels) / iters,
+            [(name, t / 1e3 / iters) for name, t in by_name.most_common(top)])
 
 
 def bound(flops: float, nbytes: float, peak: float):
@@ -3648,6 +3658,344 @@ def run_training_paths(fp32_ms, fp32_peak):
             **sg_counts}, mp_ms
 
 
+# ----------------------------------------------------------------- phase 14
+SIFT_CONF = "sift_tpu+lightglue_homography"  # LightGlue on sift_tpu, extracted per view
+SIFT_B, SIFT_N, SIFT_WARM, SIFT_STEPS = 16, 384, 2, 5  # pairs, keypoints, warm-up, timed steps
+SIFT_BAR_IMAGES = 4  # images of the first batch held card against CPU
+CACHED_B, CACHED_N, CACHED_STEPS = 32, 512, 3  # sift+lightglue_homography's widths
+# configs/sift+lightglue_homography.yaml of the JAX package, its host SIFT swapped for sift_tpu
+CACHED_DATA = {"synthetic": {"do": True, "pool": 128}, "train_batch_size": CACHED_B,
+               "val_batch_size": CACHED_B, "num_workers": 0,
+               "homography": {"difficulty": 0.6, "translation": 0.8, "max_angle": 45,
+                              "patch_shape": [640, 480]},
+               "photometric": {"name": "lg", "p": 0.75},
+               "features": {"do": True, "name": "sift_tpu", "max_num_keypoints": CACHED_N}}
+EXT_B, EXT_N = 8, 1024  # the HPatches override of aliked+NN / disk+NN, at 480 x 640
+EXTRACTORS = {  # seeded weights: the repository holds no official ones
+    "aliked": {"name": "aliked", "model_name": "aliked-n16", "max_num_keypoints": EXT_N,
+               "detection_threshold": 0.0},
+    "disk": {"name": "disk", "max_num_keypoints": EXT_N, "detection_threshold": 0.0},
+    "disk_official": {"name": "disk_official", "max_num_keypoints": EXT_N},
+}
+ALIKED_CONF, ALIKED_STEPS = "aliked+lightglue_homography", 3
+KP_TOL = 1e-4  # px (and scale): a keypoint of the card identical to the CPU's
+RAW_FLOOR = 1e-4  # the squared value above which RootSIFT's raw bins are held
+# the training step's launches at m == n (stage 2's and the sift_tpu recipe's)
+STEP_COUNTS = {"K5": 18, "K6b": 18, "K6a": 0, "K7b self": 9, "K7b cross": 18,
+               "K1": 0, "K2": 0, "K4": 0}
+
+
+def hold_extractor(ext, images, label):
+    """`ext` on the card against the port's CPU run of the same model and
+    weights on `images`: at least 99% of each image's valid keypoints
+    identical (within KP_TOL in x, y and, where given, the scale), and on
+    those the descriptors within 1e-4; for RootSIFT its input (the squared
+    descriptor) within 1e-5, its square root not being Lipschitz at 0, and
+    the raw descriptors within 1e-4 on the bins whose square exceeds
+    RAW_FLOOR (the largest raw difference over all bins is printed).
+    Returns the account."""
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.utils.config import to_dict
+
+    cpu = get_model(ext.conf.name)(to_dict(ext.conf), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in ext.state_dict().items()})
+    with torch.no_grad():
+        out = {k: v.cpu() for k, v in ext({"image": images}).items()}
+        ref = cpu({"image": images.cpu()})
+    rootsift = bool(ext.conf.get("rootsift", False))
+    shares, kp_err, d_err, d_raw, d_full, n_valid = [], 0.0, 0.0, 0.0, 0.0, 0
+    for b in range(images.shape[0]):
+        key = lambda p: torch.cat([p["keypoints"][b]] + (
+            [p["scales"][b][:, None]] if "scales" in p else []), -1)
+        valid = ref["keypoint_mask"][b].nonzero()[:, 0]
+        r, o = key(ref)[valid], key(out)
+        d = (r[:, None] - o[None]).abs().amax(-1) + (~out["keypoint_mask"][b]).float()[None] * 1e9
+        dist, j = d.min(1)
+        ok = dist < KP_TOL
+        shares.append(float(ok.float().mean()))
+        n_valid += len(valid)
+        i, j = valid[ok], j[ok]
+        dr, do = ref["descriptors"][b][i], out["descriptors"][b][j]
+        kp_err = max(kp_err, float(dist[ok].max()) if bool(ok.any()) else 0.0)
+        d_raw = max(d_raw, float((do - dr).abs().max()))
+        full = dr**2 > RAW_FLOOR
+        if bool(full.any()):
+            d_full = max(d_full, float((do - dr)[full].abs().max()))
+        d_err = max(d_err, float((do**2 - dr**2).abs().max()) if rootsift
+                    else float((do - dr).abs().max()))
+    bar = 1e-5 if rootsift else 1e-4
+    what = "squared descriptors (RootSIFT's input)" if rootsift else "descriptors"
+    account = (f"{n_valid} valid keypoints on {images.shape[0]} image(s), shared with the CPU "
+               f"{min(shares):.4f} (worst image; bar 0.99, within {KP_TOL:g}; largest "
+               f"difference {kp_err:.3g}), {what} within {d_err:.3g} (bar {bar:g}; raw "
+               f"descriptors {d_raw:.3g}")
+    if rootsift:
+        account += f", {d_full:.3g} on the bins whose square exceeds {RAW_FLOOR:g}, bar 1e-4)"
+    else:
+        account += ")"
+    if min(shares) < 0.99 or d_err > bar or n_valid == 0 or (rootsift and d_full > 1e-4):
+        fail(f"{label}: the card against the CPU: {account}")
+    return account
+
+
+def split_text(split):
+    ms, launches, top = split
+    return (f"{launches:.0f} launches, {ms:.2f} ms of device time a call (" +
+            "; ".join(f"{name} {t:.2f}" for name, t in top) + ")")
+
+
+def extraction_events(ext):
+    """CUDA events around each forward of `ext` (no synchronisation); returns
+    (the list of [start, end] pairs, a function that removes the hooks)."""
+    import torch
+
+    events = []
+
+    def pre(mod, args):
+        events.append([torch.cuda.Event(enable_timing=True), None])
+        events[-1][0].record()
+
+    def post(mod, args, out):
+        events[-1][1] = torch.cuda.Event(enable_timing=True)
+        events[-1][1].record()
+
+    hooks = (ext.register_forward_pre_hook(pre), ext.register_forward_hook(post))
+    return events, lambda: [h.remove() for h in hooks]
+
+
+def run_phase14_trainer(conf, name, label, expect_extractor):
+    """A trainer of `conf` through `Trainer.build()` / `train()` (one epoch
+    and its validation); returns (trainer, steps, evals, seconds, peak MiB,
+    the extractor's [start, end] events)."""
+    import torch
+
+    from gluefactory_tpu_torch.train import trainer as tmod
+    from gluefactory_tpu_torch.utils import experiments as exps
+
+    trainer = tmod.Trainer(conf, name, exps.experiment_dir(name), device="cuda")
+    trainer.build()
+    m = trainer.model.matcher.conf
+    if (m.n_layers, m.descriptor_dim, m.input_dim, m.mp, m.checkpointed) != (9, D, 128, False,
+                                                                            True):
+        fail(f"{label}: LightGlue is not 9 x 256 from 128-D descriptors, fp32, checkpointed")
+    if (trainer.model.extractor is not None) != expect_extractor:
+        fail(f"{label}: the extractor is {trainer.model.extractor}")
+    events, remove = ([], lambda: None)
+    if expect_extractor:
+        events, remove = extraction_events(trainer.model.extractor)
+    steps, evals, restore = timed_trainer(trainer)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        trainer.train()
+        t_run = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    finally:
+        restore()
+        remove()
+    for i, (_, _, counts, losses) in enumerate(steps):
+        if counts != STEP_COUNTS:
+            fail(f"{label}, step {i}: launches {counts}, expected {STEP_COUNTS}")
+        if not all(math.isfinite(v) for v in losses.values()) or losses["skipped_nonfinite"]:
+            fail(f"{label}, step {i}: {losses}")
+    if len(evals) != 1 or not math.isfinite(evals[0][1]["loss/total"]):
+        fail(f"{label}: validations {[e[1] for e in evals]}")
+    return trainer, steps, evals, t_run, peak, events
+
+
+def check_sift_training():
+    """Phase 14a: configs/sift_tpu+lightglue_homography.json at full width
+    (16 pairs of 480 x 368, sift_tpu on both views, 384 keypoints, LightGlue
+    9 x 256 from 128-D descriptors, fp32, checkpointed) through the trainer:
+    sift_tpu on the card against the CPU on 4 images of the first batch,
+    then SIFT_WARM + SIFT_STEPS steps and a validation. Returns the launches
+    a step."""
+    import statistics
+
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.utils.config import load_conf, merge
+    from gluefactory_tpu_torch.utils.tensor import batch_to_device
+
+    conf = merge(load_conf(SIFT_CONF), {
+        "data": {"train_size": (SIFT_WARM + SIFT_STEPS) * SIFT_B, "val_size": SIFT_B,
+                 "synthetic": {"pool": 64}},
+        "train": {"epochs": 1, "log_every_iter": 1}})
+    if conf["data"]["train_batch_size"] != SIFT_B or conf["model"]["extractor"] != {
+            "name": "sift_tpu", "max_num_keypoints": SIFT_N, "trainable": False}:
+        fail(f"14a: the configuration is not {SIFT_B} pairs of sift_tpu at {SIFT_N} keypoints")
+    from gluefactory_tpu_torch.datasets import get_dataset
+
+    ds = get_dataset("homographies")(conf["data"], device="cuda")
+    first = batch_to_device(next(iter(ds.get_data_loader("train", epoch=0))), "cuda")
+    sift = get_model("sift_tpu")({"max_num_keypoints": SIFT_N}, device="cuda")
+    held = hold_extractor(sift, first["view0"]["image"][:SIFT_BAR_IMAGES], "14a sift_tpu")
+    log(f"[sift14a] sift_tpu at {tuple(first['view0']['image'].shape[1:3])}: " + held)
+    # sift_tpu alone on the step's two calls (16 images each), no loader beside it
+    views = (first["view0"]["image"], first["view1"]["image"])
+    alone = timed(lambda: [sift({"image": v}) for v in views], 3)
+    split = device_ms(lambda: sift({"image": views[0]}), 2, warmup=0, top=4)
+    log(f"[sift14a] sift_tpu alone on both views of a step: {alone:.2f} ms (CUDA events); one "
+        f"view: " + split_text(split))
+    del ds, first, sift
+
+    trainer, steps, evals, t_run, peak, events = run_phase14_trainer(
+        conf, "sift_tpu_lg", "14a", True)
+    if len(steps) != SIFT_WARM + SIFT_STEPS:
+        fail(f"14a: {len(steps)} steps")
+    ext_ms = [sum(s.elapsed_time(e) for s, e in events[2 * i:2 * i + 2])
+              for i in range(SIFT_WARM, len(steps))]
+    step_ms = [(z - a) * 1e3 for a, z, _, _ in steps[SIFT_WARM:]]
+    ms, ems = statistics.median(step_ms), statistics.median(ext_ms)
+    log(f"[sift14a] {len(steps)} steps + validation in {t_run:.2f} s; ms a step {ms:.2f} "
+        f"(median of the last {SIFT_STEPS}: " + " ".join(f"{t:.2f}" for t in step_ms)
+        + f"), of which sift_tpu on both views {ems:.2f} ms ({ems / ms:.3f} of the step; CUDA "
+        f"events); peak {peak:.0f} MiB; launches a step {steps[-1][2]}; val loss/total "
+        f"{evals[0][1]['loss/total']:.4f}; losses total "
+        + " ".join(f"{x[3]['total']:.4f}" for x in steps))
+    del trainer
+    torch.cuda.empty_cache()
+    return {f"{k} sift": v for k, v in STEP_COUNTS.items() if k in ("K5", "K6b", "K7b self",
+                                                                    "K7b cross")}
+
+
+def check_cached_features():
+    """Phase 14b: the cached `features.do` mode at sift+lightglue_homography's
+    widths (32 pairs of 640 x 480 from a pool of 128 textures, sift_tpu once
+    on each source image at 960 x 720, 512 keypoints, the extractor null):
+    the loader alone (its extractions included), then CACHED_STEPS steps and a
+    validation fed by the loader on the warm cache."""
+    import statistics
+
+    import torch
+
+    from gluefactory_tpu_torch.utils.config import load_conf, merge
+
+    conf = merge(load_conf(SIFT_CONF), {
+        "data": {**CACHED_DATA, "train_size": CACHED_STEPS * CACHED_B, "val_size": CACHED_B},
+        "model": {"extractor": {"name": None}},
+        "train": {"epochs": 1, "log_every_iter": 1}})
+    from gluefactory_tpu_torch.datasets import get_dataset
+
+    ds = get_dataset("homographies")(conf["data"], device="cuda")
+    t0 = time.perf_counter()
+    n = 0
+    for batch in ds.get_data_loader("train", epoch=0):
+        n += len(batch["idx"])
+        cache = batch["view0"]["cache"]
+    loader_s = time.perf_counter() - t0
+    if cache["keypoints"].shape != (CACHED_B, CACHED_N, 2) or cache["keypoint_mask"].sum() == 0:
+        fail(f"14b: a cache of {cache['keypoints'].shape}, {cache['keypoint_mask'].sum()} valid")
+    n_src = len(ds._feature_cache)
+    trainer, steps, evals, t_run, peak, _ = run_phase14_trainer(conf, "sift_cached_lg", "14b",
+                                                                 False)
+    ms = statistics.median((z - a) * 1e3 for a, z, _, _ in steps)
+    wall = t_run / max(len(steps), 1) * 1e3
+    log(f"[cached14b] the loader alone: {n} pairs in {loader_s:.2f} s ({n / loader_s:.2f} pairs/s, "
+        f"{n_src} source images through sift_tpu at 960 x 720 included); {len(steps)} steps + "
+        f"validation in {t_run:.2f} s ({wall:.2f} ms a step with the loader and the "
+        f"validation), ms a step alone {ms:.2f} (median); peak {peak:.0f} MiB; launches a step "
+        f"{steps[-1][2]}; losses total " + " ".join(f"{x[3]['total']:.4f}" for x in steps))
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def check_extractor_pipelines():
+    """Phase 14c: ALIKED (aliked-n16), DISK and DISK-official (seeded) feeding
+    LightGlue (input_dim 128, fp32, seeded) in the two-view pipeline at 480 x
+    640, batch 8, 1024 keypoints: K1 = K2 = 9 and K4 = 1 a forward, finite
+    outputs, ms a batch and the extractor's share, each extractor on the
+    card against the CPU on one image; then ALIKED_STEPS steps of
+    configs/aliked+lightglue_homography.json at TRAIN_B pairs."""
+    import statistics
+
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.utils.config import load_conf, merge
+
+    img0, img1, _ = synthetic_pair(61, EXT_B, 480, 640)
+    size = torch.tensor([[640.0, 480.0]] * EXT_B, device="cuda")
+    data = {"view0": {"image": img0, "image_size": size},
+            "view1": {"image": img1, "image_size": size}}
+    shares = {}
+    for name, econf in EXTRACTORS.items():
+        pipe = get_model("two_view_pipeline")({
+            "extractor": econf, "matcher": {"name": "lightglue", "input_dim": 128,
+                                            "filter_threshold": 0.1}}, device="cuda").eval()
+        pipe(data)
+        torch.cuda.synchronize()
+        reset_counts()
+        out = pipe(data)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != [9, 9, 1]:
+            fail(f"14c {name}: launches K1, K2, K4 {counts}, expected [9, 9, 1]")
+        for key in ("keypoints0", "descriptors0", "log_assignment", "matching_scores0"):
+            if not torch_finite(out[key]):
+                fail(f"14c {name}: non-finite {key}")
+        if out["keypoints0"].shape != (EXT_B, EXT_N, 2):
+            fail(f"14c {name}: keypoints {tuple(out['keypoints0'].shape)}")
+        batch_ms = timed(lambda: pipe(data), 3, warmup=0)
+        ext_ms = timed(lambda: [pipe.extractor(data[v]) for v in ("view0", "view1")], 3,
+                       warmup=0)
+        held = hold_extractor(pipe.extractor, img0[:1], f"14c {name}")
+        split = device_ms(lambda: pipe.extractor(data["view0"]), 2, warmup=0, top=4)
+        shares[name] = (batch_ms, ext_ms)
+        log(f"[ext14c] {name}: {batch_ms:.2f} ms a batch of {EXT_B} pairs, the extractor "
+            f"{ext_ms:.2f} ms ({ext_ms / batch_ms:.3f} of it); launches K1 {counts[0]}, K2 "
+            f"{counts[1]}, K4 {counts[2]}; valid keypoints {int(out['keypoint_mask0'].sum())}, "
+            f"matches {int((out['matches0'] >= 0).sum())}; " + held + "; one view: "
+            + split_text(split))
+        del pipe, out
+        torch.cuda.empty_cache()
+
+    conf = merge(load_conf(ALIKED_CONF), {
+        "data": {"batch_size": TRAIN_B, "train_size": ALIKED_STEPS * TRAIN_B,
+                 "val_size": TRAIN_B, "synthetic": {"pool": 64}},
+        "train": {"epochs": 1, "log_every_iter": 1}})
+    trainer, steps, evals, t_run, peak, events = run_phase14_trainer(
+        conf, "aliked_lg", "14c ALIKED training", True)
+    ext = trainer.model.extractor.conf
+    if (ext.model_name, ext.max_num_keypoints) != ("aliked-n16", 512):
+        fail(f"14c ALIKED training: the extractor is {ext.model_name} at {ext.max_num_keypoints}")
+    ms = statistics.median((z - a) * 1e3 for a, z, _, _ in steps)
+    ems = statistics.median(sum(s.elapsed_time(e) for s, e in events[2 * i:2 * i + 2])
+                            for i in range(len(steps)))
+    log(f"[ext14c] aliked+lightglue_homography: {len(steps)} steps of {TRAIN_B} pairs + "
+        f"validation in {t_run:.2f} s; ms a step {ms:.2f} (median), ALIKED on both views "
+        f"{ems:.2f} ({ems / ms:.3f} of the step); peak {peak:.0f} MiB; launches a step "
+        f"{steps[-1][2]}; losses total " + " ".join(f"{x[3]['total']:.4f}" for x in steps))
+    del trainer
+    torch.cuda.empty_cache()
+    return shares
+
+
+def run_extractors_phase():
+    """Phase 14, with TF32 allowed for cuDNN (PyTorch's default, which the
+    training entry point keeps) and for cuBLAS: the extractors' own
+    `no_tf32` scope is what holds them to the CPU. The flags as they were
+    afterwards. Returns the launches a step of the rows it adds."""
+    import torch
+
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    t_phase = time.perf_counter()
+    try:
+        counts = check_sift_training()
+        check_cached_features()
+        check_extractor_pipelines()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    log(f"[ext14] phase {time.perf_counter() - t_phase:.1f} s (TF32 allowed outside the "
+        f"extractors)")
+    return counts
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     global TRAIN_B
@@ -3785,6 +4133,22 @@ def main() -> int:
                           "stage 2", "222")):
         kernels.append(dict(name=name, key=f"{key} {S2_N}", route="cuda", source=SRC_ATT,
                             replaces=f"{PAL_ATT}:{line}", **att[key]))
+    # the sift_tpu training recipe (phase 14a): 384 keypoints, 16 pairs, by device time as
+    # stage 2's
+    att = {**check_self_attention(37, b=SIFT_B, n=SIFT_N, timer=device_ms),
+           **check_cross_attention("stacked", 38, b=SIFT_B, n=SIFT_N, timer=device_ms)}
+    s2 = 2 * SIFT_B
+    for key, name, line in (
+            ("K5", f"K5 fused_attention_packed ({s2}, {SIFT_N}, 256) f32, sift_tpu training",
+             "383"),
+            ("K6b", f"K6b fused_cross_attention_stacked ({s2}, {SIFT_N}, 256) f32, sift_tpu "
+                    "training", "744"),
+            ("K7b self", f"K7b attention backward, self form ({s2}, {SIFT_N}, 256) f32, "
+                         "sift_tpu training", "222"),
+            ("K7b cross", f"K7b attention backward, cross form B={SIFT_B} {SIFT_N} x {SIFT_N} "
+                          "f32, sift_tpu training", "222")):
+        kernels.append(dict(name=name, key=f"{key} sift", route="cuda", source=SRC_ATT,
+                            replaces=f"{PAL_ATT}:{line}", **att[key]))
     pal_conv = "gluefactory_tpu/ops/pallas_conv.py:222"
     kernels.append(dict(
         name="K8 block0_fused (8, 480, 640, 1) f32 -> (8, 240, 320, 64) bf16", key="K8",
@@ -3893,6 +4257,10 @@ def main() -> int:
     # 13. the training paths: mp, a trainable extractor, SuperGlue, two processes
     counts, mp_ms = run_training_paths(fp32_ms, fp32_peak)
     per_step.update(counts)
+    torch.cuda.empty_cache()
+    log(f"[time] phase 14 starts at {time.perf_counter() - t_start:.1f} s")
+    # 14. the other extractors: sift_tpu training, cached features.do, ALIKED / DISK
+    per_step.update(run_extractors_phase())
     torch.cuda.empty_cache()
     mp_att = {k["key"]: k["ms"] * per_step[k["key"]] for k in kernels
               if k.get("key") in ("K5 bf16", "K6b bf16", "K7b self bf16", "K7b cross bf16")}

@@ -122,8 +122,9 @@ class BaseDataset:
     }
     default_conf: ClassVar[dict] = {}
 
-    def __init__(self, conf=None):
+    def __init__(self, conf=None, device="cuda"):
         self.conf = Config(merge(self.base_default_conf, self.default_conf, conf or {}))
+        self.device = device  # where a dataset that runs a model (features.do) runs it
         self._init(self.conf)
 
     def _init(self, conf):

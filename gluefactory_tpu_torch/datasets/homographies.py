@@ -12,12 +12,17 @@ files; other image formats raise (there is no JPEG or PNG decoder without
 cv2 or PIL). Every draw of a sample comes from one `RandomState` seeded
 `seed + idx + 1_000_003 * (epoch + 1)` on the train split and `seed + idx`
 on the others, in the JAX order, so the port and the JAX package give the
-same samples. The in-memory feature modes (`features.do`) are not ported:
-the JAX package runs their extractor with no parameters
-(gluefactory_tpu/datasets/homographies.py:291), so only a parameter-free
-extractor serves there, and both configurations that use them are SIFT
-ones; they come with `sift_tpu` (ROADMAP Queue 1 item 4). The training
-configuration does not use them.
+same samples.
+
+`features.do` puts the features of an extractor with no parameters (the JAX
+package runs it with none) into each view's `cache`, for a pipeline whose
+extractor is null: with `per_view` the extractor runs on each warped view;
+otherwise it detects once on each source image (kept in memory) and each
+view takes those keypoints warped by its homography, with `jitter`,
+`dropout` and `desc_noise` drawn from the sample's `RandomState` in the JAX
+order. The extractor is `sift_tpu`; it runs on the dataset's `device` (the
+trainer passes its own), inside the loader's threads, which reach the card.
+`features.name: sift`, the host OpenCV SIFT, raises: it is not portable.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..geometry.homography import sample_homography_corners
+from ..geometry.homography import sample_homography_corners, warp_points_np
 from ..settings import DATA_PATH
 from .augmentations import augmentations
 from .base_dataset import BaseDataset
@@ -73,6 +78,33 @@ class _HomographySplit:
     def set_epoch(self, epoch: int):
         self.epoch = int(epoch)
 
+    def _cached_features(self, feats: dict, rng, views, ps) -> None:
+        """Each view's cache from the source image's features: the keypoints
+        warped by the view's homography and jittered, those outside the
+        patch or dropped masked, the descriptors perturbed and renormalised."""
+        fc = self.parent.conf.features
+        for d, H in views:
+            kpts = warp_points_np(feats["keypoints"], H)
+            if fc.jitter > 0:
+                kpts = kpts + rng.randn(*kpts.shape) * fc.jitter
+            inside = ((kpts[:, 0] >= 0) & (kpts[:, 0] < ps[0])
+                      & (kpts[:, 1] >= 0) & (kpts[:, 1] < ps[1]))
+            mask = feats["keypoint_mask"] & inside
+            if fc.dropout > 0:
+                mask = mask & (rng.rand(len(mask)) > fc.dropout)
+            desc = feats["descriptors"]
+            if fc.desc_noise > 0:
+                desc = desc + rng.randn(*desc.shape).astype(np.float32) * fc.desc_noise
+                desc = desc / np.maximum(np.linalg.norm(desc, axis=-1, keepdims=True), 1e-8)
+            d["cache"] = {
+                "keypoints": kpts.astype(np.float32),
+                "keypoint_scores": np.where(mask, feats["keypoint_scores"], 0.0).astype(np.float32),
+                "descriptors": desc.astype(np.float32),
+                "keypoint_mask": mask,
+            }
+            if not fc.keep_images:
+                d.pop("image")
+
     def __len__(self):
         return len(self.names)
 
@@ -105,6 +137,14 @@ class _HomographySplit:
         left_scale = 0.0 if conf.right_only else 1.0
         data0, H0 = view(left_scale, photometric=False)
         data1, H1 = view(1.0, photometric=True)
+        if conf.features.do and conf.features.per_view:
+            for d in (data0, data1):
+                d["cache"] = self.parent.extract_image(d["image"])
+                if not conf.features.keep_images:
+                    d.pop("image")
+        elif conf.features.do:
+            self._cached_features(self.parent.get_features(self.names[idx], img), rng,
+                                  ((data0, H0), (data1, H1)), ps)
         sample = {
             "name": f"{self.names[idx]}",
             "idx": idx,
@@ -149,10 +189,10 @@ class HomographyDataset(BaseDataset):
     }
 
     def _init(self, conf):
+        self._feature_cache: dict = {}
+        self._extractor = None
         if conf.features.do:
-            raise NotImplementedError(
-                "features.do (in-memory and per-view extraction with a parameter-free "
-                "extractor) is not ported yet; it comes with sift_tpu (ROADMAP Queue 1 item 4)")
+            self._extractor = self._build_extractor(conf.features)
         self.photo_aug = augmentations[conf.photometric.name]()
         if conf.synthetic.do:
             pool = int(conf.synthetic.pool)
@@ -196,6 +236,36 @@ class HomographyDataset(BaseDataset):
         if img is None:
             return np.zeros((1024, 1024, 1), np.float32)
         return rgb_to_gray(img) if self.conf.grayscale else img
+
+    def _build_extractor(self, fc):
+        if fc.name == "sift":
+            raise NotImplementedError(
+                "features.name 'sift' is the host OpenCV SIFT, which is not portable (cv2); "
+                "use 'sift_tpu', the DoG SIFT on the device")
+        from ..models import get_model
+        from ..models.base_model import resolve_device
+
+        extractor = get_model(fc.name)({"max_num_keypoints": fc.max_num_keypoints, **fc.conf},
+                                       device=resolve_device(self.device))
+        if any(True for _ in extractor.parameters()):
+            raise ValueError(f"features.do needs an extractor without parameters, as the JAX "
+                             f"package runs it with none; {fc.name!r} has some")
+        return extractor.eval()
+
+    def extract_image(self, img: np.ndarray) -> dict:
+        """The extractor's features of one (H, W, C) image, unbatched numpy."""
+        import torch
+
+        image = torch.from_numpy(np.ascontiguousarray(img[None])).to(self._extractor.device)
+        pred = self._extractor({"image": image})
+        return {k: pred[k][0].cpu().numpy()
+                for k in ("keypoints", "keypoint_scores", "descriptors", "keypoint_mask")}
+
+    def get_features(self, name: str, img: np.ndarray) -> dict:
+        """The source image's features, extracted once and kept."""
+        if name not in self._feature_cache:
+            self._feature_cache[name] = self.extract_image(img)
+        return self._feature_cache[name]
 
     def get_dataset(self, split: str):
         return _HomographySplit(self, self.splits[split], split)

@@ -7,8 +7,9 @@ pair dataset, view0 optical and view1 thermal.
         [--checkpoint FILE.npz] [--device cuda|cpu]
         [--overwrite] [--overwrite_eval] [key=value ...]
 
-The default configuration is the JAX module's, whose `sift` extractor is not
-ported yet (ROADMAP Queue 1 item 4): it raises; give an extractor, e.g.
+The default configuration is the JAX module's, whose `sift` extractor is the
+host OpenCV SIFT, which is not portable: it raises; give an extractor
+(`sift_tpu` is the DoG SIFT on the device), e.g.
 `--conf gluefactory_tpu_torch/configs/superpoint-open+lightglue_MP.json
 --checkpoint weights/hermetic/sp_open_lg.npz`. Writes to
 GLUEFACTORY_TPU_TORCH_EVAL/MP/<tag>; prints the summaries as JSON.

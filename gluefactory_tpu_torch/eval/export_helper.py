@@ -6,8 +6,9 @@ loads a checkpoint: an `.npz` file (the JAX package's flat flax artifact,
 e.g. `weights/hermetic/sp_open_lg.npz`) or the name of a training
 experiment of the port (its best checkpoint, else its last). Every
 parameter and buffer of the configured components must be in it. The host-extractor branch of the JAX
-package (sift, lsd, wireframe) waits for those extractors (ROADMAP Queue 1
-items 4-5).
+package raises: `sift` (the host OpenCV SIFT) is not portable, `sift_tpu`
+takes its place; the line extractors `lsd` and `wireframe` wait (ROADMAP
+Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -52,8 +53,11 @@ def load_model(model_conf: dict, checkpoint: str | Path | None = None, device: A
     model_conf = to_dict(model_conf)
     name = (model_conf.get("extractor") or {}).get("name")
     if name in HOST_EXTRACTORS:
+        if name == "sift":
+            raise NotImplementedError(
+                "the host extractor 'sift' (OpenCV) is not portable; use 'sift_tpu'")
         raise NotImplementedError(
-            f"the host extractor {name!r} is not ported yet (ROADMAP Queue 1 items 4-5)")
+            f"the host extractor {name!r} is not ported yet (ROADMAP Queue 1 item 5)")
     model = get_model(model_conf.get("name", "two_view_pipeline"))(model_conf, device=device)
     if checkpoint:
         load_checkpoint(model, checkpoint)

@@ -15,7 +15,7 @@ from torch import nn
 
 from ..utils.config import Config, merge
 
-__all__ = ["BaseModel", "resolve_device"]
+__all__ = ["BaseModel", "resolve_device", "finish_init"]
 
 
 def resolve_device(device: Any = "cuda") -> torch.device:
@@ -59,3 +59,16 @@ class BaseModel(nn.Module):
     def check_required_keys(self, data: Mapping) -> None:
         for key in self.required_data_keys:
             assert key in data, f"Missing key {key} in data"
+
+
+def finish_init(model: BaseModel) -> None:
+    """The last steps of an extractor's construction: the weights of
+    `conf.weights` (the JAX package's `.npz` of the model's flax tree,
+    through `weights.params_from_jax`), gradients only where the
+    configuration trains it (`trainable`, `is_training`), and the device."""
+    if model.conf.get("weights"):
+        from ..weights import load_npz
+
+        model.load_state_dict(load_npz(model.conf.weights))
+    model.requires_grad_(bool(model.conf.get("trainable") or model.conf.get("is_training")))
+    model.to(model.device)

@@ -121,10 +121,6 @@ class LightGlue(BaseModel):
     def __init__(self, conf=None, device="cuda"):
         super().__init__(conf, device)
         conf = self.conf
-        if conf.add_scale_ori:
-            raise NotImplementedError(
-                "add_scale_ori is not ported yet (ROADMAP Queue 1 item 4, with the "
-                "extractors that give scales and orientations)")
         d, n = conf.descriptor_dim, conf.n_layers
         dh = d // conf.num_heads
         gen = torch.Generator().manual_seed(0)  # random init before weights load
@@ -137,7 +133,9 @@ class LightGlue(BaseModel):
         if conf.input_dim != d:
             shapes["input_proj_w"] = lambda: lecun(conf.input_dim, d)
             shapes["input_proj_b"] = lambda: torch.zeros(d)
-        shapes["posenc_Wr"] = lambda: torch.randn(2, dh // 2, generator=gen)
+        # with add_scale_ori the encoding also reads each keypoint's scale and orientation
+        shapes["posenc_Wr"] = lambda: torch.randn(2 + 2 * bool(conf.add_scale_ori), dh // 2,
+                                                  generator=gen)
         if conf.posenc == "conditional_fourier":
             shapes["posenc_cond_w"] = lambda: lecun(1, dh // 2)
             shapes["posenc_cond_b"] = lambda: torch.zeros(dh // 2)
@@ -218,6 +216,10 @@ class LightGlue(BaseModel):
         size1 = data.get("view1", {}).get("image_size")
         kn0 = normalize_keypoints(kpts0, size0, mask0)
         kn1 = normalize_keypoints(kpts1, size1, mask1)
+        if conf.add_scale_ori:
+            expand = lambda t: t if t.dim() == 3 else t[..., None]
+            kn0 = torch.cat([kn0, expand(data["scales0"]), expand(data["oris0"])], -1)
+            kn1 = torch.cat([kn1, expand(data["scales1"]), expand(data["oris1"])], -1)
 
         desc0, desc1 = data["descriptors0"], data["descriptors1"]
         if conf.input_dim != conf.descriptor_dim:

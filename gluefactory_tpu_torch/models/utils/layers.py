@@ -5,10 +5,19 @@ stride 2 on an even side), `BatchNorm` is flax's (eps 1e-3, momentum 0.99, the
 batch's biased variance in training),
 and `top_k_stable` breaks ties as `jax.lax.top_k` does. Parameter names are
 those `weights.params_from_jax` gives a flax leaf: kernel -> weight, scale
--> weight, mean / var -> running_mean / running_var."""
+-> weight, mean / var -> running_mean / running_var.
+
+For the extractors: `no_tf32()` runs a block's convolutions and products
+in full fp32 on the card, `resize_jax` is `jax.image.resize`'s "bilinear"
+(antialiased when it shrinks) and "cubic" (Keys, a = -0.5) as weight
+matrices, and `gaussian_kernel1d` the sampled, normalised Gaussian."""
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -85,12 +94,13 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 class BatchNorm(nn.Module):
     """flax's `nn.BatchNorm` with its defaults (eps 1e-3 as the models set
-    it, momentum 0.99) on NCHW tensors (`batch_norm`): weight / bias are
-    flax's scale / bias, the running statistics its `batch_stats` mean /
-    var."""
+    it, or `eps`; momentum 0.99) on NCHW tensors (`batch_norm`): weight /
+    bias are flax's scale / bias, the running statistics its `batch_stats`
+    mean / var."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, eps: float = 1e-3):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -98,7 +108,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, is_training: bool) -> torch.Tensor:
         return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
-                          is_training, momentum=0.99)
+                          is_training, momentum=0.99, eps=self.eps)
 
 
 def top_k_stable(scores: torch.Tensor, k: int):
@@ -108,4 +118,97 @@ def top_k_stable(scores: torch.Tensor, k: int):
     return values[:, :k], index[:, :k]
 
 
-__all__ = ["same_padding", "Conv", "conv_nhwc", "batch_norm", "BatchNorm", "top_k_stable"]
+def lecun_init(module: nn.Module, gen: torch.Generator) -> None:
+    """Seeded initialisation of every conv and linear layer of `module`:
+    weights lecun-normal (N(0, 1 / fan_in), flax's default), biases zero."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            with torch.no_grad():
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * fan_in**-0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
+_TF32_LOCK = threading.Lock()
+_TF32_DEPTH = [0, None]  # open blocks, the flags before the first
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN convolutions and cuBLAS products in fp32, not TF32, inside the
+    block; the flags as they were afterwards. TF32 moves a blur by ~1e-3
+    relative on the card, enough to reorder a top-k over DoG responses.
+    Blocks may nest and overlap across threads (a loader thread extracting
+    while the main thread trains): the flags come back when the last one
+    ends."""
+    with _TF32_LOCK:
+        if _TF32_DEPTH[0] == 0:
+            _TF32_DEPTH[1] = (torch.backends.cuda.matmul.allow_tf32,
+                              torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _TF32_DEPTH[0] += 1
+    try:
+        yield
+    finally:
+        with _TF32_LOCK:
+            _TF32_DEPTH[0] -= 1
+            if _TF32_DEPTH[0] == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _TF32_DEPTH[1]
+
+
+def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
+    """The normalised Gaussian on [-radius, radius], computed in float64 and
+    rounded to float32."""
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def _keys_cubic(x):
+    out = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1.0)
+    out = np.where(x >= 1.0, ((np.float32(-0.5) * x + np.float32(2.5)) * x - np.float32(4.0)) * x
+                   + np.float32(2.0), out)
+    return np.where(x >= 2.0, np.float32(0.0), out).astype(np.float32)
+
+
+def _triangle(x):
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x)).astype(np.float32)
+
+
+def resize_weights(n_in: int, n_out: int, method: str) -> np.ndarray:
+    """(n_out, n_in) float32 weights of `jax.image.resize` along one axis
+    (`compute_weight_mat` with antialias, in float32 as JAX computes it)."""
+    kernel = {"bilinear": _triangle, "cubic": _keys_cubic}[method]
+    scale = np.float32(n_out / n_in)
+    inv_scale = np.float32(1.0) / scale
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample_f = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = kernel(x.astype(np.float32))
+    total = w.sum(0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, np.float32(1.0)), np.float32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32).T
+
+
+def resize_jax(x: torch.Tensor, size: tuple, method: str = "bilinear") -> torch.Tensor:
+    """`jax.image.resize` of the last two axes of `x` to `size` (h, w):
+    "bilinear" (a triangle filter widened when it shrinks, half-pixel
+    centres) or "cubic" (Keys, a = -0.5), as two products with the axes'
+    weight matrices. An axis whose size does not change is left as it is."""
+    h, w = size
+    if x.shape[-2] != h:
+        wh = torch.from_numpy(resize_weights(x.shape[-2], h, method)).to(x.device, x.dtype)
+        x = torch.matmul(wh, x)
+    if x.shape[-1] != w:
+        ww = torch.from_numpy(resize_weights(x.shape[-1], w, method)).to(x.device, x.dtype)
+        x = torch.matmul(x, ww.T)
+    return x
+
+
+__all__ = ["same_padding", "Conv", "conv_nhwc", "batch_norm", "BatchNorm", "top_k_stable",
+           "lecun_init", "no_tf32", "gaussian_kernel1d", "resize_weights", "resize_jax"]

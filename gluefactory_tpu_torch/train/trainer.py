@@ -194,7 +194,7 @@ class Trainer:
         the summary writer."""
         conf = self.conf
         set_seed(conf.train.seed)
-        self.dataset = get_dataset(conf.data.name)(to_dict(conf.data))
+        self.dataset = get_dataset(conf.data.name)(to_dict(conf.data), device=self.device)
         if conf.train.get("load_experiment"):
             src = str(conf.train.load_experiment)
             if src.endswith(".npz"):  # a committed artifact, e.g. weights/hermetic/*.npz

@@ -14,13 +14,19 @@ a flat state dict of the port:
   - the nested trees of the models whose torch modules carry the flax
     names (SuperPoint-MagicLeap `conv1a/kernel`, MultiPoint
     `encoder_optical/Conv_0/kernel`, XPoint's backbones down to
-    `stage0_block0/attn/cpb_fc1/kernel`): the path joined by dots, a conv
+    `stage0_block0/attn/cpb_fc1/kernel`; ALIKED `block3/conv1/offset_conv/kernel`,
+    DISK `_Down_0/GroupNorm_0/scale`, KeyNet-HardNet
+    `_KeyNetScoreHead_0/bn0/scale` and its `batch_stats`, DINOv2
+    `block_0/q/kernel`): the path joined by dots, a conv
     `kernel` (HWIO) -> `weight` (OIHW), a Dense `kernel` (in, out) ->
     `nn.Linear`'s `weight` (out, in), a BatchNorm's or LayerNorm's `scale`
     -> `weight`, `batch_stats` `mean` / `var` -> `running_mean` /
     `running_var`; other parameters keep name and layout (SwinV2's raw
     `qkv` (in, 3 dim), `q_bias`, `v_bias`, `logit_scale`, SwinIR's
-    `relative_position_bias_table`);
+    `relative_position_bias_table`; ALIKED's `sddh_*` and DISK-official's
+    `down_0_conv_w` (HWIO) top-level leaves, DINOv2's `cls_token`,
+    `pos_embed` and LayerScale `ls1` / `ls2`, LightGlue's `posenc_Wr`, (2,
+    F/2) or with `add_scale_ori` (4, F/2));
   - a component prefix (`extractor/`, `matcher/`) becomes `extractor.` /
     `matcher.`, the key layout of the two-view pipeline's state dict;
   - f16 leaves are upcast to f32.
@@ -33,6 +39,8 @@ port can be handed to the JAX package.
 the port's SuperGlue state dict: `Dense_*` kernels (in, out) transposed to
 `nn.Linear` weights (out, in), LayerNorm scale / bias, `bin_score`.
 
+`load_npz(path)` maps a flat `.npz` of a flax tree (the layout of the JAX
+package's `scripts/convert_weights.py`, an extractor's `conf.weights`);
 `load_hermetic(path)` reads the committed flat npz artifact
 (counterpart of gluefactory_tpu/models/matchers/lightglue_pretrained.py:20-67).
 """
@@ -180,14 +188,20 @@ def superglue_from_flax(params: Mapping[str, Any]) -> dict:
     return out
 
 
+def load_npz(path: str | Path) -> dict:
+    """Port state dict (fp32 CPU tensors) of a flat `.npz` of a flax tree, as
+    the JAX package's `scripts/convert_weights.py` writes one ("params/a/b"
+    keys)."""
+    with np.load(str(path)) as flat:
+        return params_from_jax({k: flat[k] for k in flat.files})
+
+
 def load_hermetic(path: str | Path = HERMETIC, device: Any = "cuda") -> dict:
     """The committed SuperPoint-open + LightGlue weights as a two-view
     pipeline state dict on `device`."""
     device = resolve_device(device)
-    with np.load(str(path)) as flat:
-        tree = {k: flat[k] for k in flat.files}
-    return {k: v.to(device) for k, v in params_from_jax(tree).items()}
+    return {k: v.to(device) for k, v in load_npz(path).items()}
 
 
 __all__ = ["HERMETIC", "params_from_jax", "params_to_jax", "port_key", "superglue_from_flax",
-           "load_hermetic"]
+           "load_npz", "load_hermetic"]

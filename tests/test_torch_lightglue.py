@@ -100,5 +100,16 @@ def test_collect_layers_and_outputs():
 
 @pytest.mark.parametrize("conf", [{"add_scale_ori": True}])
 def test_unported_modes_raise(conf):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        get_model("lightglue")(conf, device="cpu")
+    """The modes this test once held raising are ported: `add_scale_ori`
+    concatenates each keypoint's scale and orientation to its normalised
+    position (posenc_Wr (4, F/2)); the port matches the JAX model at the
+    bars above (tests/test_torch_sift.py holds it on sift_tpu features)."""
+    data = _data(11, 2, 64, 64, True)
+    rng = np.random.RandomState(0)
+    for i in "01":
+        data[f"scales{i}"] = (rng.rand(2, 64) * 8 + 1).astype(np.float32)
+        data[f"oris{i}"] = (rng.rand(2, 64) * 6 - 3).astype(np.float32)
+    ref, out = _run_both(data, conf, seed=11)
+    np.testing.assert_allclose(
+        out["log_assignment"].numpy(), np.asarray(ref["log_assignment"]), atol=5e-3)
+    assert (out["matches0"].numpy() == np.asarray(ref["matches0"])).mean() >= 0.99

@@ -263,7 +263,7 @@ def test_benchmark_registry_and_default(tmp_path):
     from gluefactory_tpu.eval.MP import MPPipeline as JaxPipeline
 
     assert MPPipeline.default_conf == JaxPipeline.default_conf
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    with pytest.raises(NotImplementedError, match="not portable"):  # the host OpenCV SIFT
         MPPipeline(device="cpu").run(tmp_path / "mp")
 
 
