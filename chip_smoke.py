@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SuperPoint-open + LightGlue (full depth,
-adaptive, training), SuperGlue, the benchmarks, the multispectral slice,
-the hermetic loop (the detector's pretraining -> LightGlue -> HPatches) and
-the other training paths (bf16, a trainable extractor, SuperGlue, two
-processes) on one GPU.
+adaptive, training), SuperGlue, the benchmarks (HPatches, synthetic_pose,
+MP, MegaDepth-1500, ETH3D), the multispectral slice, the hermetic loop (the
+detector's pretraining -> LightGlue -> HPatches), the other training paths
+(bf16, a trainable extractor, SuperGlue, two processes) and the other
+extractors on one GPU.
 
     python3 chip_smoke.py [--train-batch PAIRS]
 
@@ -163,6 +164,30 @@ processes) on one GPU.
      K5, K6b and K7b at (64, 512, 256) and K6a at 512 x 384 (13a's; the
      kernels and SDPA in bf16 timed by CUDA events and by device time) and
      K7a and the per-head K7b at (32, 4, 512, 64) (13c's).
+ 14. the other extractors: the sift_tpu training recipe through the trainer
+     (sift_tpu on the card against the CPU), the cached `features.do` mode,
+     ALIKED, DISK and DISK-official feeding LightGlue, each against the CPU
+     on one image, and steps of aliked+lightglue_homography;
+ 15. the benchmarks of the paper's protocol: (a) the port's JPEG / PNG
+     decoders on this host (csrc/image_decode.cpp, host C++): the committed
+     corpus (tests/data/codecs) decoded to the digests cv2 gave where it was
+     written, ms of a 1600 x 1200 JPEG and of a 6048 x 4032 16-bit PNG
+     decode; (b) MegaDepth-1500 through `eval.megadepth1500.main` on an
+     8-pair tree (pair 0 the committed JPEG pair, the others rendered here
+     at 1600 x 1200 with known K and T): SuperPoint-open with the committed
+     weights, 2048 keypoints at threshold 0, LightGlue 9 x 256 fp32, RANSAC
+     at 1 px, resize 1600 and pad 1600 x 1600: K1 = K2 = 9 and K4 = 1 a
+     pair, pair 0's matches0 equal to the plain path on >= 99% and its log
+     assignment within 1e-3 + 1e-4 |value|, AUC@5/10/20, mAA and the
+     epipolar precisions finite; export pairs/s, the loader's pairs/s alone,
+     eval seconds, peak memory; then superpoint-open+NN.json on the same
+     tree, its summaries finite; (c) ETH3D through `ETH3DPipeline`: one
+     scene of 5 views rendered at 1512 x 1008, downsize 2 (the 756 x 504
+     the protocol gives 6048 x 4032 / 8), 16-bit PNG depth, COLMAP text:
+     K1 = K2 = 9 and K4 = 1 a pair, a finite AP, pair 0's ground truth on
+     the card equal to the CPU's depth_matcher on the same keypoints;
+     export pairs/s. The kernel rows add the fp32 K1 / K2 at (2, 2048, 256)
+     and K4 at B = 1, 2048 x 2048.
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -255,28 +280,50 @@ def timed_median(fn, iters: int, warmup: int = 2) -> float:
     return timed(fn, iters, warmup, reps=5)
 
 
+def profiled(run, attempts: int = 3):
+    """torch.profiler (CPU and CUDA activities) around `run()`, synchronised:
+    the profile and its CUDA kernel events, or None when the profiler recorded
+    no kernel in `attempts` tries. CUPTI's tracing has come up empty on some
+    machines (the first session of a process included); the callers then time
+    by CUDA events and say so."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            run()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.device_time_total for e in kernels) > 0:
+            return prof, kernels
+    log(f"[profiler] torch.profiler recorded no kernel in {attempts} tries: the time below "
+        "is by CUDA events, launches and the device split not measured")
+    return None
+
+
 def device_ms(fn, iters: int, warmup: int = 2, top: int = 0):
     """Milliseconds per call of the kernels' own device time (their sum, by
     torch.profiler), without the host's gaps between launches: for a shape
     at which one call's Python and launch overhead outlasts its kernels.
     With `top`, (those ms, the launches a call, the `top` kernels by device
-    time as (name, ms a call))."""
+    time as (name, ms a call)). Where the profiler records no kernel, the ms
+    are by CUDA events (`timed`), and the launches None."""
     import collections
-
-    import torch
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    got = profiled(run)
+    if got is None:
+        ms = timed(fn, iters, warmup=0)
+        return (ms, None, []) if top else ms
+    kernels = got[1]
     total = sum(e.device_time_total for e in kernels)
-    if total <= 0:
-        fail("device_ms: the profiler recorded no kernel")
     if not top:
         return total / 1e3 / iters
     by_name = collections.Counter()
@@ -2268,15 +2315,17 @@ def run_pose_model(work, name, matcher, weights):
 
 
 def call_profile(fn, calls=3):
-    """(kernel launches, device ms, host reads) a call of `fn`, by torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    """(kernel launches, device ms, host reads) a call of `fn`, by
+    torch.profiler; (None, ms by CUDA events, None) where it records no
+    kernel."""
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+
+    got = profiled(run)
+    if got is None:
+        return None, timed(fn, calls, warmup=0), None
+    events = got[0].key_averages()
     kernels = [e for e in events if e.device_type.name == "CUDA"]
     reads = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
     return (sum(e.count for e in kernels) / calls,
@@ -2395,13 +2444,16 @@ def check_pose_ransac(pipe, pred_file):
             call()
             times.append((time.perf_counter() - t0) * 1e3)
         times = sorted(times[2:])
-        launches, device_ms, reads = call_profile(call)
+        launches, dev_ms, reads = call_profile(call)
         tag = "one threshold" if ths == 1.0 else "the sweep of six"
         out[tag] = times[len(times) // 2]
+        profile = (f"{launches:.0f} kernel launches, {dev_ms:.2f} ms of device time, "
+                   f"{reads:.0f} host reads (cudaStreamSynchronize) a call"
+                   if launches is not None else f"{dev_ms:.2f} ms by CUDA events a call, "
+                   "launches and host reads not measured")
         log(f"[synthetic_pose ransac] one call on the card, {len(pts0)} matches (bucket "
             f"{k0.shape[0]}), K = 8192, two rounds, {tag}: median {out[tag]:.2f} ms of 8 "
-            f"({times[0]:.2f}-{times[-1]:.2f}); {launches:.0f} kernel launches, {device_ms:.2f} "
-            f"ms of device time, {reads:.0f} host reads (cudaStreamSynchronize) a call")
+            f"({times[0]:.2f}-{times[-1]:.2f}); {profile}")
     return out
 
 
@@ -3303,28 +3355,20 @@ def timed_steps(trainer, batches, steps):
 def profile_steps(trainer, batches, steps):
     """`steps` training steps on `batches` (cycled) under torch.profiler:
     the device time a step of every kernel, of the attention forwards (K5,
-    K6b, K6a) and of K7b's kernels, and the wall time a profiled step (ms)."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        trainer.train_steps([batches[i % len(batches)] for i in range(steps)])
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    K6b, K6a) and of K7b's kernels; None where the profiler records no
+    kernel."""
+    got = profiled(lambda: trainer.train_steps(
+        [batches[i % len(batches)] for i in range(steps)]))
+    if got is None:
+        return None
     total = fwd = bwd = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t = e.device_time_total / 1e3
-            total += t
-            fwd += t if any(k in e.name for k in ("attn_fwd_kernel", "cross_fwd_stacked_kernel",
-                                                  "cross_fwd_pair_kernel")) else 0.0
-            bwd += t if "attn_bwd_" in e.name else 0.0
-    if total <= 0:
-        fail("profile_steps: the profiler recorded no kernel")
-    return dict(device_ms=total / steps, fwd_ms=fwd / steps, bwd_ms=bwd / steps,
-                profiled_wall_ms=wall / steps)
+    for e in got[1]:
+        t = e.device_time_total / 1e3
+        total += t
+        fwd += t if any(k in e.name for k in ("attn_fwd_kernel", "cross_fwd_stacked_kernel",
+                                              "cross_fwd_pair_kernel")) else 0.0
+        bwd += t if "attn_bwd_" in e.name else 0.0
+    return dict(device_ms=total / steps, fwd_ms=fwd / steps, bwd_ms=bwd / steps)
 
 
 def expect_counts(counts, steps, label, **per_step):
@@ -3361,10 +3405,11 @@ def check_mp_step(batches, fp32_total):
         f"{counts['K6b'] // 3} K6b + {(counts['K7b self'] + counts['K7b cross']) // 3} K7b, "
         "all bf16; losses total " + " ".join(f"{x['total']:.4f}" for x in history))
     prof = profile_steps(trainer, batches, 2)
-    log(f"[train13a] a step's kernels by device time (torch.profiler, 2 steps): "
-        f"{prof['device_ms']:.2f} ms, of it the attention forwards {prof['fwd_ms']:.2f} and "
-        f"K7b {prof['bwd_ms']:.2f}; device idle {1 - prof['device_ms'] / ms:.3f} of the timed "
-        "step")
+    if prof is not None:
+        log(f"[train13a] a step's kernels by device time (torch.profiler, 2 steps): "
+            f"{prof['device_ms']:.2f} ms, of it the attention forwards {prof['fwd_ms']:.2f} "
+            f"and K7b {prof['bwd_ms']:.2f}; device idle {1 - prof['device_ms'] / ms:.3f} of "
+            "the timed step")
     per_step = {k: v // 3 for k, v in counts.items()}
     per_step["K6a"] = mn_step(trainer, batches[0], "train13a")  # bf16 K6a
     return per_step, ms, peak
@@ -3742,6 +3787,8 @@ def hold_extractor(ext, images, label):
 
 def split_text(split):
     ms, launches, top = split
+    if launches is None:
+        return f"{ms:.2f} ms by CUDA events a call (launches and split not measured)"
     return (f"{launches:.0f} launches, {ms:.2f} ms of device time a call (" +
             "; ".join(f"{name} {t:.2f}" for name, t in top) + ")")
 
@@ -3996,6 +4043,418 @@ def run_extractors_phase():
     return counts
 
 
+# ----------------------------------------------------------------- phase 15
+CODECS = ROOT / "tests" / "data" / "codecs"
+MD_PAIRS, MD_SIZE = 8, (1600, 1200)  # pairs of the MegaDepth-1500 tree, (w, h)
+MD_EXTRACTOR = {"name": "superpoint_open", "max_num_keypoints": 2048,
+                "detection_threshold": 0.0, "dtype": None}
+MD_LIGHTGLUE = {"name": "lightglue", "filter_threshold": 0.1}
+ETH_VIEWS, ETH_SIZE, ETH_DOWNSIZE = 5, (1512, 1008), 2  # ETH3D's 6048 x 4032 / 8 fed to the model
+ETH_POINTS = 6000  # 3D points on the scene's planes for the COLMAP tracks
+MD_SUMMARIES = ("rel_pose_error@5°", "rel_pose_error@10°", "rel_pose_error@20°",
+                "rel_pose_error_mAA", "mepi_prec@1e-4", "mepi_prec@5e-4", "mepi_prec@1e-3")
+
+
+def check_decoders(work):
+    """15a: the committed corpus decoded by the port on this host, each mode
+    to the sha256 that cv2 gave where the corpus was written; ms of a
+    1600 x 1200 JPEG decode and of a 6048 x 4032 16-bit PNG decode (written
+    here by `write_png16` and read back exactly)."""
+    import hashlib
+    import statistics
+
+    import numpy as np
+
+    from gluefactory_tpu_torch import _ext
+    from gluefactory_tpu_torch.datasets.image_codecs import decode_jpeg, decode_png
+    from gluefactory_tpu_torch.datasets.utils import read_image, read_image_anydepth
+
+    t0 = time.perf_counter()
+    _ext.load_host("image_decode")
+    log(f"[codecs] csrc/image_decode.cpp built and loaded in {time.perf_counter() - t0:.2f} s")
+    manifest = json.loads((CODECS / "manifest.json").read_text())
+    checked = 0
+    for name, entry in manifest["files"].items():
+        for mode, want in entry["decoded"].items():
+            path = CODECS / name
+            if mode == "anydepth":
+                out = read_image_anydepth(path)
+            else:  # the uint8 image behind read_image's float32 / 255
+                out = (read_image(path, mode == "grey") * 255.0).round().astype(np.uint8)
+                out = out[..., 0] if mode == "grey" else out
+            got = hashlib.sha256(np.ascontiguousarray(out).tobytes()).hexdigest()
+            if list(out.shape) != want["shape"] or got != want["sha256"]:
+                fail(f"codecs: {name} ({mode}) decodes to {out.shape} {got[:16]}, cv2 gave "
+                     f"{want['shape']} {want['sha256'][:16]}")
+            checked += 1
+
+    def median_ms(fn, n):
+        times = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    jpeg = (CODECS / "md_pair0_a.jpg").read_bytes()
+    jpeg_ms = median_ms(lambda: decode_jpeg(jpeg), 7)
+    grey_ms = median_ms(lambda: decode_jpeg(jpeg, True), 7)
+    read_ms = median_ms(lambda: read_image(CODECS / "md_pair0_a.jpg"), 7)
+    yy, xx = np.mgrid[0:4032, 0:6048]
+    depth = (1000 + 700 * np.sin(xx / 97.0) + 500 * np.cos(yy / 61.0) + (xx + yy) % 7).astype(
+        np.uint16)
+    work.mkdir(parents=True, exist_ok=True)
+    write_png16(work / "depth.png", depth)
+    png = (work / "depth.png").read_bytes()
+    back = decode_png(png, "anydepth")
+    if back.dtype != np.uint16 or not np.array_equal(back, depth):
+        fail("codecs: the 6048 x 4032 16-bit PNG does not read back exactly")
+    png_ms = median_ms(lambda: decode_png(png, "anydepth"), 3)
+    log(f"[codecs] the committed corpus: {checked} decodes equal cv2's digests; 1600 x 1200 "
+        f"4:2:0 JPEG {jpeg_ms:.2f} ms to RGB, {grey_ms:.2f} ms to grey, read_image (file, "
+        f"float32) {read_ms:.2f} ms; 6048 x 4032 16-bit PNG ({len(png) / 2**20:.1f} MiB) "
+        f"{png_ms:.2f} ms (median, host clock, on the host's CPU)")
+
+
+def pair_line(n0, n1, K0, K1, T):
+    return " ".join([n0, n1] + [f"{x:.9g}" for x in (*K0.ravel(), *K1.ravel(), *T.ravel())])
+
+
+def build_megadepth_tree(root):
+    """megadepth1500/{images, pairs_calibrated.txt}: 36-field lines, pair 0
+    the committed JPEG pair, pairs 1 .. MD_PAIRS - 1 items of the synthetic
+    two-view renderer's test split at MD_SIZE (known K and T_0to1), rendered
+    on threads and written as PPM."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from gluefactory_tpu_torch.datasets.synthetic_two_view import SyntheticTwoViewDataset
+
+    images = root / "megadepth1500" / "images"
+    (images / "jpeg").mkdir(parents=True)
+    manifest = json.loads((CODECS / "manifest.json").read_text())["megadepth_pair0"]
+    lines = []
+    for name in manifest["images"]:
+        (images / "jpeg" / name).write_bytes((CODECS / name).read_bytes())
+    lines.append(pair_line(*(f"jpeg/{n}" for n in manifest["images"]),
+                           np.array(manifest["K0"]), np.array(manifest["K1"]),
+                           np.array(manifest["T_0to1"])))
+    split = SyntheticTwoViewDataset({"image_size": list(MD_SIZE),
+                                     "test_size": MD_PAIRS}).get_dataset("test")
+    with ThreadPoolExecutor(4) as pool:
+        items = list(pool.map(split.__getitem__, range(1, MD_PAIRS)))
+    for i, item in enumerate(items, 1):
+        names = [f"ppm/{i}_{v}.ppm" for v in "ab"]
+        (images / "ppm").mkdir(exist_ok=True)
+        for v, name in enumerate(names):
+            write_ppm(images / name, item[f"view{v}"]["image"][..., 0])
+        K = item["view0"]["camera"].calibration_matrix().numpy()
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = item["T_0to1"].R.numpy(), item["T_0to1"].t.numpy()
+        lines.append(pair_line(*names, K, K, T))
+    (root / "megadepth1500" / "pairs_calibrated.txt").write_text("\n".join(lines) + "\n")
+
+
+def run_megadepth_cli(work, tag, argv):
+    """`python -m gluefactory_tpu_torch.eval.megadepth1500` (its `main`) on
+    the tree, K1, K2, K4 counted and peak memory; returns (summaries,
+    pipeline, counts, peak MiB)."""
+    import torch
+
+    from gluefactory_tpu_torch.eval import megadepth1500 as md
+
+    runs, run = [], md.MegaDepth1500Pipeline.run
+
+    def recorded(self, *a, **k):
+        runs.append(self)
+        return run(self, *a, **k)
+
+    root = work / "data" / "megadepth1500"
+    argv = ["--tag", tag, f"data.pairs={json.dumps(str(root / 'pairs_calibrated.txt'))}",
+            f"data.root={json.dumps(str(root / 'images'))}", *argv]
+    md.EVAL_PATH, md.MegaDepth1500Pipeline.run = work, recorded
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in hpatches_counters()[1:]:
+            fn.launches = 0
+        summaries = md.main(argv)
+        torch.cuda.synchronize()
+        counts = [fn.launches for fn in hpatches_counters()[1:]]
+    finally:
+        md.MegaDepth1500Pipeline.run = run
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    pipe = runs[0]
+    log(f"[md1500 {tag}] export {MD_PAIRS / pipe.timings['export_s']:.2f} pairs/s "
+        f"({pipe.timings['export_s']:.2f} s for {MD_PAIRS} pairs), eval phase "
+        f"{pipe.timings['eval_s']:.2f} s, peak memory {peak:.0f} MiB; launches K1 {counts[0]}, "
+        f"K2 {counts[1]}, K4 {counts[2]}")
+    log(f"[md1500 {tag}] summaries " + json.dumps(summaries))
+    return summaries, pipe, counts, peak
+
+
+def hold_pair0(pipe):
+    """The first pair of the tree (the committed JPEG pair) through the
+    pipeline of the run, kernels against the plain path: matches0 equal on
+    >= 99% of view 0's keypoints, the log assignment within 1e-3 + 1e-4
+    |value| (as phase 11's MP benchmark); and the loader alone (pairs/s), on
+    the tree and on a JPEG-only tree (pair 0's line repeated as often, the
+    files read warm from the page cache), as MegaDepth-1500 is all JPEG."""
+    import torch
+
+    from gluefactory_tpu_torch.eval.export_helper import load_model
+    from gluefactory_tpu_torch.utils.config import Config, merge
+    from gluefactory_tpu_torch.utils.tensor import batch_to_device
+
+    t0 = time.perf_counter()
+    batches = list(pipe.get_dataloader())
+    loader_pps = len(batches) / (time.perf_counter() - t0)
+    pairs = Path(pipe.conf.data.pairs)
+    jpeg_pairs = pairs.with_name("pairs_jpeg.txt")
+    jpeg_pairs.write_text((pairs.read_text().splitlines()[0] + "\n") * len(batches))
+    t0 = time.perf_counter()
+    n_jpeg = sum(1 for _ in pipe.get_dataloader(Config(merge(pipe.conf.data,
+                                                             {"pairs": str(jpeg_pairs)}))))
+    jpeg_pps = n_jpeg / (time.perf_counter() - t0)
+    conf = dict(pipe.conf.model)
+    model = load_model({k: v for k, v in conf.items() if k != "checkpoint"}, conf["checkpoint"],
+                       "cuda")
+    batch = batch_to_device(batches[0], "cuda")
+    with torch.no_grad():
+        out = model(batch)
+        with plain_path():
+            ref = model(batch)
+    agree = float((out["matches0"] == ref["matches0"]).float().mean())
+    la, lr = out["log_assignment"], ref["log_assignment"]
+    finite = torch.isfinite(lr)
+    if not bool((torch.isfinite(la) == finite).all()):
+        fail("md1500 pair 0: the log assignment's finite entries differ from the plain path's")
+    diff = (la - lr)[finite].abs()
+    excess = float((diff - 1e-4 * lr[finite].abs()).max())
+    log(f"[md1500 pair 0] {batches[0]['name'][0]}: matches0 equal to the plain path on "
+        f"{agree:.4f} of {out['matches0'].shape[1]} keypoints ({int((out['matches0'] > -1).sum())} "
+        f"matches); log assignment {tuple(la.shape)} within {float(diff.max()):.3g} "
+        f"({excess:.3g} above 1e-4 |value|, bar 1e-3); the loader alone {loader_pps:.2f} "
+        f"pairs/s ({len(batches)} pairs: decode, resize to 1600, pad), on the JPEG-only tree "
+        f"{jpeg_pps:.2f} pairs/s ({n_jpeg} pairs of the committed 1600 x 1200 JPEGs)")
+    if n_jpeg != len(batches):
+        fail(f"md1500: the JPEG-only tree gave {n_jpeg} pairs, expected {len(batches)}")
+    if agree < 0.99:
+        fail(f"md1500 pair 0: matches0 equal to the plain path on {agree:.4f} < 0.99")
+    if not excess <= 1e-3:
+        fail(f"md1500 pair 0: log assignment {float(diff.max()):.3g} from the plain path")
+    with torch.no_grad():
+        pair_ms = timed(lambda: model(batch), 5)
+        ext_ms = timed(lambda: [model.extractor(batch[v]) for v in ("view0", "view1")], 5)
+    log(f"[md1500 pair 0] warm forward {pair_ms:.2f} ms a pair (CUDA events): the extractor "
+        f"on both 1600 x 1600 boxes {ext_ms:.2f} ms, the rest (LightGlue, filtering) "
+        f"{pair_ms - ext_ms:.2f} ms")
+    del model, batches
+
+
+def run_megadepth1500(work):
+    """15b; returns the K1, K2, K4 launches of the LightGlue run."""
+    from gluefactory_tpu_torch.weights import HERMETIC
+
+    t0 = time.perf_counter()
+    build_megadepth_tree(work / "data")
+    log(f"[md1500] tree of {MD_PAIRS} calibrated pairs at {MD_SIZE[0]} x {MD_SIZE[1]} (pair 0 "
+        f"the committed JPEGs, the others rendered here as PPM) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    s, pipe, counts, _ = run_megadepth_cli(work, "lightglue", [
+        "--checkpoint", str(HERMETIC), "eval.ransac_th=1.0",
+        "model.extractor=" + json.dumps(MD_EXTRACTOR),
+        "model.matcher=" + json.dumps(MD_LIGHTGLUE)])
+    if counts != [9 * MD_PAIRS, 9 * MD_PAIRS, MD_PAIRS]:
+        fail(f"md1500: expected K1 = K2 = 9 and K4 = 1 launches a pair, got {counts}")
+    bad = [k for k in MD_SUMMARIES if not math.isfinite(s[k])]
+    if bad:
+        fail(f"md1500: non-finite summaries {bad}")
+    if pipe.conf.data.preprocessing.resize != 1600 or list(pipe.conf.data.preprocessing.pad_to) != [
+            1600, 1600]:
+        fail("md1500: the data block is not resize 1600 / pad_to [1600, 1600]")
+    hold_pair0(pipe)
+    nn, _, nn_counts, _ = run_megadepth_cli(work, "superpoint-open+NN", [
+        "--conf", str(ROOT / "gluefactory_tpu_torch" / "configs" / "superpoint-open+NN.json"),
+        "--checkpoint", str(HERMETIC)])
+    bad = [k for k, v in nn.items() if not math.isfinite(v)]
+    if bad or nn_counts != [0, 0, 0]:
+        fail(f"md1500 superpoint-open+NN: non-finite summaries {bad} or launches {nn_counts}")
+    return {"K1 md": counts[0], "K2 md": counts[1], "K4 md": counts[2]}
+
+
+def rotmat2qvec(R):
+    """(w, x, y, z) of a rotation matrix (COLMAP's convention)."""
+    import numpy as np
+
+    w = math.sqrt(max(0.0, 1 + R[0, 0] + R[1, 1] + R[2, 2])) / 2
+    return np.array([w, (R[2, 1] - R[1, 2]) / (4 * w), (R[0, 2] - R[2, 0]) / (4 * w),
+                     (R[1, 0] - R[0, 1]) / (4 * w)])
+
+
+def write_png16(path, depth):
+    """A 16-bit grey PNG, filter 0, with zlib."""
+    import struct
+    import zlib
+
+    h, w = depth.shape
+    rows = depth.astype(">u2")
+    raw = b"".join(b"\x00" + rows[y].tobytes() for y in range(h))
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0,
+                                                                      0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def build_eth3d_tree(root):
+    """One scene in ETH3D's layout: ETH_VIEWS views of a back plane and
+    three front planes (the synthetic two-view renderer's scene), rendered
+    at ETH_SIZE and written as PPM, their 16-bit depth (metres x 256) as
+    PNG at the same size, COLMAP cameras.txt / images.txt with the tracks
+    of ETH_POINTS points on the planes (visible where in the image and not
+    occluded). Returns the pairs above the default min_covisibility (500)."""
+    import numpy as np
+
+    from gluefactory_tpu_torch.datasets.homographies import generate_texture_image
+    from gluefactory_tpu_torch.datasets.synthetic_two_view import render_view
+
+    scene = root / "ETH3D_undistorted" / "synthetic"
+    dirs = [scene / "images" / "dslr_images_undistorted",
+            scene / "ground_truth_depth" / "undistorted_depth",
+            scene / "dslr_calibration_undistorted"]
+    for d in dirs:
+        d.mkdir(parents=True)
+    rng = np.random.RandomState(1500)
+    w, h = ETH_SIZE
+    f = 0.9 * w
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+    planes = [(generate_texture_image(rng, (1024, 1024)), 7.0, None)]
+    rects = [(-1.6, -1.0, 0.2, 0.6), (0.4, -0.9, 1.7, 0.9), (-0.7, 0.5, 0.9, 1.4)]
+    for d, rect in zip((4.0, 3.3, 5.0), rects):
+        planes.append((generate_texture_image(rng, (512, 512)), d, rect))
+    planes.sort(key=lambda p: -p[1])
+    # points on the planes: the back plane over the views' field, the front ones on their rects
+    pts = []
+    for _, d, rect in planes:
+        x0, y0, x1, y1 = rect or (-4.5, -3.0, 4.5, 3.0)
+        n = ETH_POINTS // 2 if rect is None else ETH_POINTS // 6
+        pts.append(np.c_[rng.uniform(x0, x1, n), rng.uniform(y0, y1, n), np.full(n, d)])
+    pts = np.concatenate(pts)
+    cam_lines = ["# Camera list with one line of data per camera:",
+                 "#   CAMERA_ID, MODEL, WIDTH, HEIGHT, PARAMS[]",
+                 f"0 PINHOLE {w} {h} {f:.6f} {f:.6f} {w / 2:.6f} {h / 2:.6f}"]
+    (dirs[2] / "cameras.txt").write_text("\n".join(cam_lines) + "\n")
+    img_lines = ["# Image list with two lines of data per image:",
+                 "#   IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, CAMERA_ID, NAME",
+                 "#   POINTS2D[] as (X, Y, POINT3D_ID)"]
+    vis = []
+    for i in range(ETH_VIEWS):
+        aa = rng.randn(3) * 0.04
+        theta = np.linalg.norm(aa)
+        k = aa / theta
+        Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        R = np.eye(3) + math.sin(theta) * Kx + (1 - math.cos(theta)) * Kx @ Kx
+        t = np.array([0.35 * (i - ETH_VIEWS // 2), 0.1 * rng.randn(), 0.1 * rng.randn()])
+        img, depth, _ = render_view(K, R, t, planes, (w, h))
+        write_ppm(dirs[0] / f"view_{i}.ppm", img[..., 0])
+        write_png16(dirs[1] / f"view_{i}.png", np.clip(depth * 256.0, 0, 65535).round())
+        Xc = pts @ R.T + t
+        uv = Xc[:, :2] / Xc[:, 2:] * f + [w / 2, h / 2]
+        inside = (Xc[:, 2] > 0.1) & (uv[:, 0] >= 0) & (uv[:, 0] < w - 1) & (uv[:, 1] >= 0) & (
+            uv[:, 1] < h - 1)
+        ui, vi = uv[:, 0].astype(int).clip(0, w - 1), uv[:, 1].astype(int).clip(0, h - 1)
+        seen = inside & (np.abs(depth[vi, ui] - Xc[:, 2]) < 0.05)
+        vis.append(seen)
+        q = rotmat2qvec(R)
+        img_lines.append(f"{i} " + " ".join(f"{x:.12f}" for x in (*q, *t)) + f" 0 view_{i}.ppm")
+        img_lines.append(" ".join(f"{u:.3f} {v:.3f} {p}" for p, (u, v) in
+                                  zip(np.where(seen)[0], uv[seen])))
+    (dirs[2] / "images.txt").write_text("\n".join(img_lines) + "\n")
+    return [(a, b, int((vis[a] & vis[b]).sum())) for a in range(ETH_VIEWS)
+            for b in range(a + 1, ETH_VIEWS) if (vis[a] & vis[b]).sum() >= 500]
+
+
+def run_eth3d(work):
+    """15c: the ETH3D benchmark on a tree written here."""
+    import torch
+
+    from gluefactory_tpu_torch.eval.eth3d import ETH3DPipeline
+    from gluefactory_tpu_torch.eval.export_helper import load_model
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.utils.tensor import batch_to_device
+    from gluefactory_tpu_torch.weights import HERMETIC
+
+    t0 = time.perf_counter()
+    pairs = build_eth3d_tree(work / "data")
+    log(f"[eth3d] one scene of {ETH_VIEWS} views at {ETH_SIZE[0]} x {ETH_SIZE[1]} (PPM, 16-bit "
+        f"PNG depth, COLMAP text) in {time.perf_counter() - t0:.2f} s; pairs above 500 "
+        f"covisible points: {pairs}")
+    if len(pairs) < 3:
+        fail(f"eth3d: {len(pairs)} pairs above min_covisibility, expected at least 3")
+    conf = {"data": {"data_dir": str(work / "data" / "ETH3D_undistorted"),
+                     "downsize_factor": ETH_DOWNSIZE},
+            "model": {"extractor": {**MD_EXTRACTOR, "max_num_keypoints": 1024},
+                      "matcher": MD_LIGHTGLUE, "checkpoint": str(HERMETIC)}}
+    pipe = ETH3DPipeline(conf, device="cuda")
+    torch.cuda.synchronize()
+    for fn in hpatches_counters()[1:]:
+        fn.launches = 0
+    s, _, r = pipe.run(work / "eth3d")
+    torch.cuda.synchronize()
+    counts = [fn.launches for fn in hpatches_counters()[1:]]
+    n = len(pairs)
+    log(f"[eth3d] export {n / pipe.timings['export_s']:.2f} pairs/s ({pipe.timings['export_s']:.2f}"
+        f" s for {n} pairs at {ETH_SIZE[0] // ETH_DOWNSIZE} x {ETH_SIZE[1] // ETH_DOWNSIZE}), eval "
+        f"{pipe.timings['eval_s']:.3f} s; AP {s['AP']:.3f}, recall at the end "
+        f"{float(r['curve_recall'][-1]):.3f}; launches K1 {counts[0]}, K2 {counts[1]}, "
+        f"K4 {counts[2]}")
+    if counts != [9 * n, 9 * n, n] or not math.isfinite(s["AP"]):
+        fail(f"eth3d: launches {counts} (expected 9, 9, 1 a pair over {n}) or AP {s['AP']}")
+    # the ground truth of pair 0 on the card against the CPU's on the keypoints of the
+    # benchmark's model
+    batch = batch_to_device(next(iter(pipe.get_dataloader())), "cuda")
+    model = load_model({k: v for k, v in dict(pipe.conf.model).items() if k != "checkpoint"},
+                       HERMETIC, "cuda")
+    with torch.no_grad():
+        feats = {f"{k}{i}": t for i, v in enumerate(("view0", "view1"))
+                 for k, t in model.extractor(batch[v]).items()}
+        gt = model.ground_truth({**batch, **feats})
+        again = model.extractor(batch["view0"])["keypoints"]  # is the extraction repeatable?
+    cpu = get_model("depth_matcher")(dict(pipe.conf.model.ground_truth), device="cpu")(
+        batch_to_device({**batch, **feats}, "cpu"))
+    for k in GT_KEYS:
+        if not torch.equal(gt[k].cpu(), cpu[k]):
+            fail(f"eth3d: {k} on the card differs from the CPU's on "
+                 f"{int((gt[k].cpu() != cpu[k]).sum())} entries")
+    log(f"[eth3d pair 0] ground truth on the card equal to the CPU's ({', '.join(GT_KEYS)}): "
+        f"{int((gt['gt_matches0'] >= 0).sum())} positives of {gt['gt_matches0'].shape[1]}; a "
+        f"second extraction of view 0 gives the same keypoints: "
+        f"{bool(torch.equal(again, feats['keypoints0']))}")
+
+
+def run_benchmarks_phase():
+    """Phase 15: the decoders, MegaDepth-1500 and ETH3D. Returns the launches
+    of the rows it adds."""
+    import shutil
+
+    work = ROOT / "outputs" / "chip_smoke_benchmarks"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        check_decoders(work)
+        counts = run_megadepth1500(work)
+        run_eth3d(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[bench15] phase {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     global TRAIN_B
@@ -4076,6 +4535,17 @@ def main() -> int:
         name="K4 fused_log_assignment B=1 M=N=512 f32, HPatches eval", key="K4 eval",
         route="cuda", source=src_asg, replaces="gluefactory_tpu/ops/pallas_assignment.py:200,225",
         **check_assignment(1, 512, 512, seed=33)))
+    # the MegaDepth-1500 benchmark (phase 15): fp32 blocks and assignment, one pair of
+    # 2048 keypoints at a time (the JAX package's v2 blocks above 1024 keypoints)
+    for kind_, key, lines, seed in (("self", "K1", "326,659", 40), ("cross", "K2", "393,717", 41)):
+        r = check_block(kind_, 2, 2048, seed=seed, dt="float32")
+        kernels.append(dict(name=f"{key} {lb_names[kind_]}(_v2) (2, 2048, 256) f32, "
+                                 "MegaDepth-1500", key=f"{key} md", route="cuda", source=src_blk,
+                            replaces=f"{pal_blk}:{lines}", **r))
+    kernels.append(dict(
+        name="K4 fused_log_assignment B=1 M=N=2048 f32, MegaDepth-1500", key="K4 md",
+        route="cuda", source=src_asg, replaces="gluefactory_tpu/ops/pallas_assignment.py:200,225",
+        **check_assignment(1, 2048, 2048, seed=43)))
     compact = check_assignment(1, 256, 256, seed=34)
     log(f"[kernel] K4 B=1 M=N=256 f32 (the adaptive HPatches run's compact width): max abs err "
         f"{compact['max_abs_err']:.3g}; {compact['ms']:.4f} ms")
@@ -4261,6 +4731,10 @@ def main() -> int:
     log(f"[time] phase 14 starts at {time.perf_counter() - t_start:.1f} s")
     # 14. the other extractors: sift_tpu training, cached features.do, ALIKED / DISK
     per_step.update(run_extractors_phase())
+    torch.cuda.empty_cache()
+    log(f"[time] phase 15 starts at {time.perf_counter() - t_start:.1f} s")
+    # 15. the decoders, MegaDepth-1500 and ETH3D
+    per_step.update(run_benchmarks_phase())
     torch.cuda.empty_cache()
     mp_att = {k["key"]: k["ms"] * per_step[k["key"]] for k in kernels
               if k.get("key") in ("K5 bf16", "K6b bf16", "K7b self bf16", "K7b cross bf16")}

@@ -1,11 +1,14 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C++ code.
 
 Each `csrc/<name>.cu` is compiled by nvcc on its own into
 `_build/lib<name>-<hash>.so` (plain C interface, `sm_90a`) at first use and
 loaded with ctypes. All sources build in parallel, one nvcc each. The hash
 covers the source and the shared headers, so an edited kernel rebuilds.
+Each `csrc/<name>.cpp` (host code, no CUDA: the image decoders) is compiled
+the same way by the host C++ compiler (`$CXX`, else `c++` or `g++`) on the
+CPU as on the card's machine; without a compiler `load_host` raises.
 Nothing here runs at import time: this module imports on a machine without
-CUDA, and only a launch on a CUDA tensor builds anything.
+CUDA, and only a launch on a CUDA tensor, or a decode, builds anything.
 """
 
 from __future__ import annotations
@@ -54,6 +57,19 @@ SIGNATURES = {
                               _I, _P],
     },
 }
+
+_I64 = ctypes.c_int64
+# argument types of the host libraries' C entry points
+HOST_SIGNATURES = {
+    "image_decode": {
+        "gf_jpeg_scan": [_P, _I64, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+        "gf_jpeg_idct": [_P, _I, _I, _P, _P],
+        "gf_jpeg_upsample": [_P, _I, _I, _I, _I, _I, _P, _I, _I],
+        "gf_jpeg_ycc_rgb": [_P, _P, _P, _I64, _P],
+        "gf_png_unfilter": [_P, _I, _I64, _I, _P],
+    },
+}
+HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -115,6 +131,44 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
+        return lib
+
+
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler found ($CXX, c++ or g++): the image decoders "
+                       "(csrc/image_decode.cpp) build with one")
+
+
+def _host_target(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD / f"lib{name}-host-{h.hexdigest()[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library `name` (`csrc/<name>.cpp`), built first if
+    needed; raises if the compiler is missing or fails."""
+    with _lock:
+        lib = _libs.get(("host", name))
+        if lib is None:
+            target = _host_target(name)
+            if not target.exists():
+                BUILD.mkdir(parents=True, exist_ok=True)
+                tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+                cmd = [_cxx(), *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")]
+                run = subprocess.run(cmd, capture_output=True, text=True)
+                if run.returncode != 0:
+                    raise RuntimeError(f"{cmd[0]} failed for {name}.cpp:\n{run.stderr}")
+                tmp.replace(target)
+            lib = ctypes.CDLL(str(target))
+            for fn, argtypes in HOST_SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[("host", name)] = lib
         return lib
 
 

@@ -7,9 +7,10 @@ view, and gives the pair homography H_0to1 = H1 @ H0^-1 as supervision.
 Samples are numpy, (H, W, C) float32 in [0, 1], static shapes.
 
 Sources: procedurally generated textures (`synthetic.do`) or a local image
-folder (`data_dir` / `image_dir` under the data root) of binary PPM / PGM
-files; other image formats raise (there is no JPEG or PNG decoder without
-cv2 or PIL). Every draw of a sample comes from one `RandomState` seeded
+folder (`data_dir` / `image_dir` under the data root) of JPEG, PNG or
+binary PPM / PGM files, read by `read_image` with the port's own decoders;
+other formats, and the JPEG / PNG variants that `image_codecs` refuses,
+raise. Every draw of a sample comes from one `RandomState` seeded
 `seed + idx + 1_000_003 * (epoch + 1)` on the train split and `seed + idx`
 on the others, in the JAX order, so the port and the JAX package give the
 same samples.
@@ -232,7 +233,7 @@ class HomographyDataset(BaseDataset):
             if key not in _TEXTURES:
                 _TEXTURES[key] = generate_texture_image(np.random.RandomState(key[0]), key[1:])
             return _TEXTURES[key]
-        img = read_image(self.image_dir / name)  # RGB, float32 in [0, 1]; raises unless PNM
+        img = read_image(self.image_dir / name)  # RGB, float32 in [0, 1]
         if img is None:
             return np.zeros((1024, 1024, 1), np.float32)
         return rgb_to_gray(img) if self.conf.grayscale else img

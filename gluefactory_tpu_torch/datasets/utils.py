@@ -1,16 +1,23 @@
 """Image reading and preprocessing on the host (counterpart of
 gluefactory_tpu/datasets/utils.py, without cv2).
 
-`read_image` reads binary 8-bit PPM / PGM (P6 / P5), the format of the
-HPatches release, with numpy; colour to grey is OpenCV's fixed-point
-conversion (Y = (4899 R + 9617 G + 1868 B + 2^13) >> 14), so both read the
-same values. Other formats raise and name the format.
+`read_image` dispatches on the file's magic number: binary 8-bit PPM / PGM
+(P6 / P5, the format of the HPatches release) read with numpy, baseline
+JPEG and PNG through the port's own decoders (`image_codecs`, the loops in
+`csrc/image_decode.cpp`), which give what `cv2.imread` gives bit for bit.
+PPM colour to grey is OpenCV's fixed-point conversion
+(Y = (4899 R + 9617 G + 1868 B + 2^13) >> 14); a colour JPEG's grey is its Y
+plane and a colour PNG's libpng's, as cv2 reads them. Other formats, and
+the JPEG / PNG variants `image_codecs` lists, raise and name what they met.
+`read_image_anydepth` keeps 16 bits of a PNG (cv2's IMREAD_ANYDEPTH).
 
-`resize_image` computes "area" resampling, the preprocessing's only mode,
+`resize_image` computes "area" resampling, the preprocessing's default,
 as OpenCV's INTER_AREA does: each output pixel is the mean of the input over
 its footprint, weighted by the overlap of pixel areas, which averages when
 shrinking and interpolates between the two nearest pixels when enlarging.
 The weights are one matrix an axis and the resize two products (float32).
+"nearest" is OpenCV's INTER_NEAREST: source index floor(x / (dst / src)) in
+double precision, clamped to the last pixel.
 """
 
 from __future__ import annotations
@@ -21,9 +28,9 @@ import numpy as np
 import torch
 
 from ..utils.config import Config, merge
+from .image_codecs import JPEG_MAGIC, PNG_MAGIC, decode_jpeg, decode_png, jpeg_size, png_size
 
-_MAGIC = {b"\x89PNG": "PNG", b"\xff\xd8\xff": "JPEG", b"GIF8": "GIF", b"II*\x00": "TIFF",
-          b"MM\x00*": "TIFF", b"BM": "BMP", b"RIFF": "WebP"}
+_MAGIC = {b"GIF8": "GIF", b"II*\x00": "TIFF", b"MM\x00*": "TIFF", b"BM": "BMP", b"RIFF": "WebP"}
 
 
 def _pnm_header(data: bytes, path: Path):
@@ -31,9 +38,9 @@ def _pnm_header(data: bytes, path: Path):
     bytes; raises on any other format."""
     for magic, fmt in _MAGIC.items():
         if data.startswith(magic):
-            raise ValueError(f"{path}: {fmt} images are not supported (binary PPM/PGM only)")
+            raise ValueError(f"{path}: {fmt} images are not supported (PPM/PGM, JPEG and PNG)")
     if data[:2] not in (b"P5", b"P6"):
-        raise ValueError(f"{path}: not a binary PPM/PGM file (magic {data[:2]!r})")
+        raise ValueError(f"{path}: not a binary PPM/PGM, JPEG or PNG file (magic {data[:2]!r})")
     fields, pos = [], 2
     while len(fields) < 3:  # width, height, maxval; '#' starts a comment
         while data[pos:pos + 1].isspace():
@@ -54,23 +61,50 @@ def _pnm_header(data: bytes, path: Path):
     return w, h, 3 if data[:2] == b"P6" else 1, pos + 1
 
 
-def _read_pnm(path: Path) -> np.ndarray:
+def _read_pnm(data: bytes, path: Path) -> np.ndarray:
     """(H, W, C) uint8 of a binary PGM (C = 1) or PPM (C = 3)."""
-    data = path.read_bytes()
     w, h, c, offset = _pnm_header(data, path)
     return np.frombuffer(data, np.uint8, count=h * w * c, offset=offset).reshape(h, w, c)
 
 
+def _size(head: bytes, path: Path) -> tuple[int, int]:
+    if head.startswith(JPEG_MAGIC):
+        return jpeg_size(head, path)
+    if head.startswith(PNG_MAGIC):
+        return png_size(head, path)
+    w, h, _, _ = _pnm_header(head, path)
+    return h, w
+
+
 def read_image_size(path: str | Path) -> tuple[int, int]:
-    """(H, W) of a binary PPM / PGM from its header, without reading the pixels."""
+    """(H, W) of a PPM / PGM, JPEG or PNG from its headers (a JPEG's or
+    PNG's Exif orientation applied, as `read_image` applies it), without
+    decoding the pixels."""
     path = Path(path)
     with open(path, "rb") as f:
-        head = f.read(4096)
+        head = f.read(65536)
     try:
-        w, h, _, _ = _pnm_header(head, path)
-    except ValueError:  # a header longer than the first 4 KiB, or a bad file
-        w, h, _, _ = _pnm_header(path.read_bytes(), path)
-    return h, w
+        return _size(head, path)
+    except (ValueError, IndexError):  # headers longer than the first 64 KiB, or a bad file
+        return _size(path.read_bytes(), path)
+
+
+def _decode(data: bytes, path: Path, grayscale: bool) -> np.ndarray:
+    """(H, W, C) uint8 as cv2.imread gives it (RGB), C = 1 or 3."""
+    if data.startswith(JPEG_MAGIC):
+        img = decode_jpeg(data, grayscale, path)
+        return img[..., None] if grayscale else img
+    if data.startswith(PNG_MAGIC):
+        img = decode_png(data, "grey" if grayscale else "color", path)
+        return img[..., None] if grayscale else img
+    img = _read_pnm(data, path)
+    if grayscale and img.shape[-1] == 3:
+        rgb = img.astype(np.int32)
+        y = (rgb[..., 0] * 4899 + rgb[..., 1] * 9617 + rgb[..., 2] * 1868 + (1 << 13)) >> 14
+        img = y.astype(np.uint8)[..., None]
+    elif not grayscale and img.shape[-1] == 1:
+        img = np.repeat(img, 3, axis=-1)
+    return img
 
 
 def read_image(path: str | Path, grayscale: bool = False) -> np.ndarray | None:
@@ -79,14 +113,20 @@ def read_image(path: str | Path, grayscale: bool = False) -> np.ndarray | None:
     path = Path(path)
     if not path.is_file():
         return None
-    img = _read_pnm(path)
-    if grayscale and img.shape[-1] == 3:
-        rgb = img.astype(np.int32)
-        y = (rgb[..., 0] * 4899 + rgb[..., 1] * 9617 + rgb[..., 2] * 1868 + (1 << 13)) >> 14
-        img = y.astype(np.uint8)[..., None]
-    elif not grayscale and img.shape[-1] == 1:
-        img = np.repeat(img, 3, axis=-1)
-    return img.astype(np.float32) / 255.0
+    return _decode(path.read_bytes(), path, grayscale).astype(np.float32) / 255.0
+
+
+def read_image_anydepth(path: str | Path) -> np.ndarray | None:
+    """A single-channel image at its own depth, (H, W) uint16 for a 16-bit
+    PNG, else uint8, as cv2.imread with IMREAD_ANYDEPTH gives it; None if
+    the file does not exist."""
+    path = Path(path)
+    if not path.is_file():
+        return None
+    data = path.read_bytes()
+    if data.startswith(PNG_MAGIC):
+        return decode_png(data, "anydepth", path)
+    return _decode(data, path, True)[..., 0]
 
 
 def area_weights(n_in: int, n_out: int) -> np.ndarray:
@@ -107,13 +147,27 @@ def resized_shape(h: int, w: int, size, fn: str = "max") -> tuple[int, int]:
     return h_new, w_new
 
 
+def nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """Source index of each of n_out pixels under OpenCV's INTER_NEAREST:
+    floor(i * (1 / (n_out / n_in))) in double precision, at most n_in - 1."""
+    inv = 1.0 / (n_out / n_in)
+    return np.minimum(np.floor(np.arange(n_out, dtype=np.float64) * inv).astype(np.int64),
+                      n_in - 1)
+
+
 def resize_image(img: np.ndarray, size, fn: str = "max", interp: str = "area"):
     """Resize so that fn(h, w) == size (an int) keeping the aspect, or to
-    size = (w, h); returns (img (H', W', C) float32, scales = new / old (x, y))."""
-    if interp != "area":
-        raise ValueError(f"interpolation {interp!r} is not ported (area only)")
+    size = (w, h); returns (img (H', W'[, C]) float32, scales = new / old
+    (x, y)). "area" keeps a channel axis (adds one to a 2-D image, as the
+    weights do); "nearest" keeps the input's dims and dtype, as cv2 does."""
+    if interp not in ("area", "nearest"):
+        raise ValueError(f"interpolation {interp!r} is not ported (area and nearest)")
     h, w = img.shape[:2]
     h_new, w_new = resized_shape(h, w, size, fn)
+    scales = np.array([w_new / w, h_new / h], np.float32)
+    if interp == "nearest":
+        out = np.asarray(img)[nearest_index(h, h_new)][:, nearest_index(w, w_new)]
+        return np.ascontiguousarray(out), scales
     x = torch.from_numpy(np.ascontiguousarray(img, np.float32))
     if x.ndim == 2:
         x = x[..., None]
@@ -123,7 +177,6 @@ def resize_image(img: np.ndarray, size, fn: str = "max", interp: str = "area"):
         wy = torch.from_numpy(area_weights(h, h_new).astype(np.float32))
         wx = torch.from_numpy(area_weights(w, w_new).astype(np.float32))
         out = torch.einsum("xj,yjc->yxc", wx, torch.tensordot(wy, x, dims=([1], [0])))
-    scales = np.array([w_new / w, h_new / h], np.float32)
     return out.contiguous().numpy(), scales
 
 
@@ -196,7 +249,8 @@ def scale_intrinsics(K: np.ndarray, scales) -> np.ndarray:
 
 
 __all__ = [
-    "read_image", "read_image_size", "area_weights", "resized_shape", "resize_image",
+    "read_image", "read_image_size", "read_image_anydepth", "area_weights", "nearest_index",
+    "resized_shape", "resize_image",
     "ImagePreprocessor",
     "scale_homography", "scale_intrinsics",
 ]

@@ -1,17 +1,14 @@
 """Benchmarks of the port (counterpart of gluefactory_tpu/eval): the
-registry and the hook the trainer calls at the end of an epoch. HPatches
-(`eval.hpatches`), the synthetic homography benchmark (`eval.synthetic`),
-the synthetic relative-pose benchmark (`eval.synthetic_pose`) and the
-multispectral benchmark (`eval.MP`) are ported; the others wait (ROADMAP
-Queue 1 item 6)."""
+registry and the hook the trainer calls at the end of an epoch. All the JAX
+package's benchmarks are ported: HPatches (`eval.hpatches`), MegaDepth-1500
+(`eval.megadepth1500`), ETH3D (`eval.eth3d`), the synthetic homography and
+relative-pose benchmarks (`eval.synthetic`, `eval.synthetic_pose`) and the
+multispectral benchmark (`eval.MP`)."""
 
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Any
-
-NOT_PORTED = ("megadepth1500", "eth3d")
-
 
 def get_benchmark(name: str):
     if name == "hpatches":
@@ -30,9 +27,14 @@ def get_benchmark(name: str):
         from .MP import MPPipeline
 
         return MPPipeline
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {name} benchmark is not ported yet (ROADMAP Queue 1 item 6)")
+    if name == "megadepth1500":
+        from .megadepth1500 import MegaDepth1500Pipeline
+
+        return MegaDepth1500Pipeline
+    if name == "eth3d":
+        from .eth3d import ETH3DPipeline
+
+        return ETH3DPipeline
     raise ValueError(f"Unknown benchmark {name}")
 
 

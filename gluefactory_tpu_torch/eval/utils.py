@@ -1,5 +1,6 @@
-"""Per-pair evaluation of homography and relative-pose benchmarks
-(counterpart of gluefactory_tpu/eval/utils.py:26-224).
+"""Per-pair evaluation of homography and relative-pose benchmarks, and the
+precision-recall AP of ground-truth-labelled matches (counterpart of
+gluefactory_tpu/eval/utils.py).
 
 Predictions come in as numpy arrays (the export file); the selection of the
 matched pairs is numpy on the host, the geometry (symmetric and epipolar
@@ -174,8 +175,52 @@ def eval_poses(pose_results: dict, auc_ths: list, key: str, unit: str = "°"):
     return summaries, best_th
 
 
+def get_tp_fp_pts(pred_matches, gt_matches, pred_scores, ignore_label=-2):
+    """One pair's true / false positive flags and scores of its predicted
+    matches, and its count of ground-truth positives; keypoints labelled
+    `ignore_label` are left out."""
+    pred_matches, gt_matches, pred_scores = (np.asarray(x) for x in
+                                             (pred_matches, gt_matches, pred_scores))
+    keep = gt_matches != ignore_label
+    pred_matches, gt_matches, pred_scores = pred_matches[keep], gt_matches[keep], pred_scores[keep]
+    num_pos = int(np.sum(gt_matches != -1))
+    pos = pred_matches != -1
+    tp = pred_matches[pos] == gt_matches[pos]
+    fp = pred_matches[pos] != gt_matches[pos]
+    return tp, fp, pred_scores[pos], num_pos
+
+
+def AP(tp, fp):
+    """Area under the interpolated precision-recall curve of cumulative
+    (recall, false positives / positives)."""
+    recall = tp
+    precision = tp / np.maximum(tp + fp, 1e-9)
+    recall = np.concatenate(([0.0], recall, [1.0]))
+    precision = np.concatenate(([0.0], precision, [0.0]))
+    for i in range(precision.size - 1, 0, -1):
+        precision[i - 1] = max(precision[i - 1], precision[i])
+    i = np.where(recall[1:] != recall[:-1])[0]
+    return float(np.sum((recall[i + 1] - recall[i]) * precision[i + 1]))
+
+
+def aggregate_pr_results(results, suffix=""):
+    """Every pair's flags merged into one curve by descending score: the
+    curve and its AP in percent."""
+    tp_list = np.concatenate(results["tp" + suffix], axis=0)
+    fp_list = np.concatenate(results["fp" + suffix], axis=0)
+    scores_list = np.concatenate(results["scores" + suffix], axis=0)
+    n_gt = max(results["num_pos" + suffix], 1)
+    idx = np.argsort(scores_list)[::-1]
+    tp_vals = np.cumsum(tp_list[idx]) / n_gt
+    fp_vals = np.cumsum(fp_list[idx]) / n_gt
+    return {"curve_recall" + suffix: tp_vals,
+            "curve_precision" + suffix: tp_vals / np.maximum(tp_vals + fp_vals, 1e-9),
+            "AP" + suffix: AP(tp_vals, fp_vals) * 100}
+
+
 __all__ = [
     "get_matches_scores", "eval_matches_homography", "eval_homography_robust",
     "eval_homography_robust_sweep", "eval_homography_dlt", "eval_matches_epipolar",
     "eval_relative_pose_robust", "eval_relative_pose_robust_sweep", "eval_poses",
+    "get_tp_fp_pts", "AP", "aggregate_pr_results",
 ]

@@ -113,6 +113,29 @@ class Camera(TensorWrapper):
         fx, fy, cx, cy = K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], K[..., 1, 2]
         return cls(torch.stack([2 * cx, 2 * cy, fx, fy, cx, cy], -1))
 
+    @classmethod
+    def from_colmap(cls, camera: dict) -> "Camera":
+        """A COLMAP camera {"model", "width", "height", "params"} (PINHOLE,
+        OPENCV, RADIAL, SIMPLE_PINHOLE, SIMPLE_RADIAL), float32."""
+        model, params = camera["model"], [float(p) for p in camera["params"]]
+        if model in ("OPENCV", "PINHOLE", "RADIAL"):
+            fx, fy, cx, cy = params[:4]
+            dist = params[4:]
+        elif model in ("SIMPLE_PINHOLE", "SIMPLE_RADIAL"):
+            fx = fy = params[0]
+            cx, cy = params[1:3]
+            dist = params[3:] + ([0.0] if model == "SIMPLE_RADIAL" else [])
+        else:
+            raise NotImplementedError(model)
+        data = [camera["width"], camera["height"], fx, fy, cx, cy, *dist]
+        return cls(torch.tensor(data, dtype=torch.float64).float())
+
+    def scale(self, scales) -> "Camera":
+        """The camera of the image resized by `scales` (x, y): size, focal
+        lengths and principal point times the scales."""
+        s = torch.as_tensor(scales, dtype=self._data.dtype).expand(self.size.shape)
+        return Camera(torch.cat([self.size * s, self.f * s, self.c * s, self.dist], -1))
+
     @property
     def size(self) -> torch.Tensor:
         return self._data[..., :2]

@@ -180,7 +180,7 @@ def test_read_image_and_preprocessor_exact_at_scale_1(tmp_path):
     ref = jdu.ImagePreprocessor({"grayscale": True})(jdu.read_image(tmp_path / "a.ppm"))
     np.testing.assert_allclose(out["image"], ref["image"], atol=1e-6)
     assert read_image(tmp_path / "missing.ppm") is None
-    (tmp_path / "x.png").write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(16))
+    (tmp_path / "x.png").write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(16))  # truncated
     with pytest.raises(ValueError, match="PNG"):
         read_image(tmp_path / "x.png")
 

@@ -256,10 +256,10 @@ def test_benchmark_summaries_against_jax(chains, kind, bar):
 
 
 def test_benchmark_registry_and_default(tmp_path):
-    from gluefactory_tpu_torch.eval import NOT_PORTED, get_benchmark
+    from gluefactory_tpu_torch.eval import get_benchmark
     from gluefactory_tpu_torch.eval.MP import MPPipeline
 
-    assert get_benchmark("MP") is MPPipeline and "MP" not in NOT_PORTED
+    assert get_benchmark("MP") is MPPipeline
     from gluefactory_tpu.eval.MP import MPPipeline as JaxPipeline
 
     assert MPPipeline.default_conf == JaxPipeline.default_conf

@@ -113,7 +113,8 @@ def test_port_imports_no_jax():
             "experiments.py", "summary.py", "synthetic.py", "base_dataset.py", "MP.py",
             "mp_image_pairs.py", "superpoint_magicleap.py", "layers.py", "distributed.py",
             "stdout_capturing.py", "sift_tpu.py", "keynet_hardnet.py", "aliked.py", "disk.py",
-            "disk_official.py", "grid_extractor.py", "mixed.py", "dinov2.py"} <= names
+            "disk_official.py", "grid_extractor.py", "mixed.py", "dinov2.py", "image_codecs.py",
+            "image_pairs.py", "megadepth1500.py", "eth3d.py", "image_folder.py"} <= names
     multipoint = {p.relative_to(ROOT / "gluefactory_tpu_torch" / "multipoint").as_posix()
                   for p in files if "multipoint" in p.parts}
     assert {"datasets/image_pair_dataset.py", "models/multipoint.py", "models/xpoint.py",

@@ -209,8 +209,9 @@ def test_json_config_equals_the_jax_yaml():
 
 
 def test_image_folder_items_match_jax(tmp_path, monkeypatch):
-    """A folder of PPM images (OpenCV's float grey conversion); other formats
-    raise, naming the format."""
+    """A folder of PPM images (OpenCV's float grey conversion), then of PNG
+    and JPEG images read by the port's own decoders: the items equal the
+    JAX package's (cv2.imread)."""
     import gluefactory_tpu.datasets.homographies as jhom
 
     import gluefactory_tpu_torch.datasets.homographies as thom
@@ -231,7 +232,9 @@ def test_image_folder_items_match_jax(tmp_path, monkeypatch):
         for i in range(2):
             _assert_items_equal(tds.get_dataset(split)[i], jds.get_dataset(split)[i],
                                 f"{split} {i}")
-    cv2.imwrite(str(image_dir / "4.png"), np.zeros((8, 8), np.uint8))
-    png = HomographyDataset({**conf, "glob": ["*.png"], "train_size": 1, "val_size": 0})
-    with pytest.raises(ValueError, match="PNG images are not supported"):
-        png.get_dataset("train")[0]
+    for i, ext in enumerate((".png", ".jpg")):
+        rgb = (rng.rand(90, 120, 3) * 255).astype(np.uint8)
+        cv2.imwrite(str(image_dir / f"{4 + i}{ext}"), rgb)
+        pconf = {**conf, "glob": [f"*{ext}"], "train_size": 1, "val_size": 0}
+        _assert_items_equal(HomographyDataset(pconf).get_dataset("train")[0],
+                            JaxDataset(pconf).get_dataset("train")[0], ext)

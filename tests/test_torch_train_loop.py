@@ -295,10 +295,10 @@ def test_options_not_ported_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         Trainer(conf, "e", None, device="cpu")
     from gluefactory_tpu_torch.eval import get_benchmark
+    from gluefactory_tpu_torch.eval.megadepth1500 import MegaDepth1500Pipeline
     from gluefactory_tpu_torch.train.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        get_benchmark("megadepth1500")
+    assert get_benchmark("megadepth1500") is MegaDepth1500Pipeline
     # --distributed is ported: without torchrun's environment it raises, naming it
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)
