@@ -3,8 +3,8 @@
 adaptive, training), SuperGlue, the benchmarks (HPatches, synthetic_pose,
 MP, MegaDepth-1500, ETH3D), the multispectral slice, the hermetic loop (the
 detector's pretraining -> LightGlue -> HPatches), the other training paths
-(bf16, a trainable extractor, SuperGlue, two processes) and the other
-extractors on one GPU.
+(bf16, a trainable extractor, SuperGlue, two processes), the other
+extractors and the MegaDepth training recipe on one GPU.
 
     python3 chip_smoke.py [--train-batch PAIRS]
 
@@ -187,7 +187,28 @@ extractors on one GPU.
      K1 = K2 = 9 and K4 = 1 a pair, a finite AP, pair 0's ground truth on
      the card equal to the CPU's depth_matcher on the same keypoints;
      export pairs/s. The kernel rows add the fp32 K1 / K2 at (2, 2048, 256)
-     and K4 at B = 1, 2048 x 2048.
+     and K4 at B = 1, 2048 x 2048;
+ 16. the MegaDepth training recipe: (a) the port's HDF5 writer and reader
+     (utils/hdf5.py) on a 1600 x 1200 float32 depth file and a cache of
+     1000 image groups, bit for bit, ms of a depth read; (b) a scene in
+     MegaDepth's layout written here (28 views rendered at 1600 x 1200,
+     landscape and portrait, PNG with HDF5 depth; the committed JPEG pair
+     and a view without an image as None entries; overlaps spread so that
+     the configuration's 3 bins of 300 pairs keep theirs); (c)
+     configs/superpoint-open+lightglue_megadepth.json through the trainer at
+     its shape (1024 px square-padded, 2048 keypoints forced, 32 pairs,
+     LightGlue 9 x 256 fp32 checkpointed, the committed weights grafted):
+     the loader alone in pairs/s, the ground truth of 8 pairs on the card
+     equal to the CPU's, the first step within 1e-4 of the plain path and two
+     gradients within 1e-3 max|g|, 3 timed steps (18 K5, 18 K6b, 27 K7b a
+     step), ms a step, peak memory, a step fed by the loader; a batch that
+     does not fit is logged and halved; (d) one `views: 3` batch of 8
+     triplets through `triplet_pipeline` (9 K1, 9 K2, 1 K4) against three
+     two-view calls fed the same features, matches equal on >= 99%; (e)
+     export_megadepth --method sp over the scene, read back, then a step of
+     8 pairs with `load_features.do` in which the extractor runs no
+     forward; (f) an MP batch from an HDF5 file the port's writer wrote. The
+     kernel rows add K5, K6b and K7b at the recipe's (64, 2048, 256).
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -197,6 +218,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -4293,20 +4315,20 @@ def rotmat2qvec(R):
                      (R[1, 0] - R[0, 1]) / (4 * w)])
 
 
-def write_png16(path, depth):
-    """A 16-bit grey PNG, filter 0, with zlib."""
+def write_png16(path, depth, bits=16):
+    """A 16-bit (or, with `bits=8`, 8-bit) grey PNG, filter 0, with zlib."""
     import struct
     import zlib
 
     h, w = depth.shape
-    rows = depth.astype(">u2")
+    rows = depth.astype(">u2" if bits == 16 else "u1")
     raw = b"".join(b"\x00" + rows[y].tobytes() for y in range(h))
 
     def chunk(kind, body):
         return struct.pack(">I", len(body)) + kind + body + struct.pack(
             ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
 
-    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0,
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bits, 0,
                                                                       0, 0, 0))
                      + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
@@ -4455,6 +4477,520 @@ def run_benchmarks_phase():
     return counts
 
 
+# ----------------------------------------------------------------- phase 16
+MD16_CONF = "superpoint-open+lightglue_megadepth"  # the MegaDepth training recipe
+MD16_SCENE = "0001"  # the first scene of the configuration's train_scenes_clean.txt
+MD16_VIEWS = 28  # rendered views: 756 ordered pairs, ~250 in each of the 3 overlap bins
+MD16_SIZE = (1600, 1200)  # (w, h) of a landscape view; MD16_PORTRAIT are rendered h x w
+MD16_PORTRAIT = (3, 9, 14, 20, 25)
+MD16_B, MD16_N = 32, 2048  # the configuration's pairs a step and keypoints
+MD16_STEPS = 3  # timed steps after one warm-up
+MD16_TRIPLETS = 8  # triplets of the views: 3 batch
+MD16_GT_PAIRS = 8  # pairs whose ground truth is held card against CPU
+MD16_CACHE_GROUPS = 1000  # image groups of the HDF5 cache written and read back in 16a
+MD16_MP_PAIRS = 8  # optical / thermal pairs of the MP file in 16f
+MD16_CACHED_B = 8  # pairs of the cached-feature step
+
+
+def batch_head(batch, n):
+    """The first n pairs of a collated batch (tensors, Pose / Camera, lists)."""
+    from gluefactory_tpu_torch.geometry.wrappers import TensorWrapper
+
+    def cut(x):
+        if isinstance(x, dict):
+            return {k: cut(v) for k, v in x.items()}
+        if isinstance(x, (list, TensorWrapper)) or hasattr(x, "shape") and len(x.shape):
+            return x[:n]
+        return x
+
+    return cut(batch)
+
+
+def check_hdf5_io(work):
+    """16a: the port's HDF5 writer and reader on this host (no h5py here:
+    they check each other; the CPU tests hold both against h5py): a 1600 x
+    1200 float32 depth file and a feature cache of MD16_CACHE_GROUPS image
+    groups, written and read back bit for bit; ms of one depth read."""
+    import statistics
+
+    import numpy as np
+
+    from gluefactory_tpu_torch.datasets.megadepth import read_depth
+    from gluefactory_tpu_torch.utils import hdf5
+
+    rng = np.random.RandomState(16)
+    depth = (rng.rand(MD16_SIZE[1], MD16_SIZE[0]) * 80).astype(np.float32)
+    depth[rng.rand(*depth.shape) < 0.2] = 0.0  # MegaDepth's holes
+    t0 = time.perf_counter()
+    with hdf5.File(work / "depth.h5", "w") as f:
+        f.create_dataset("/depth", data=depth)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        back = read_depth(work / "depth.h5")
+        times.append((time.perf_counter() - t0) * 1e3)
+    if back.dtype != np.float32 or back.tobytes() != depth.tobytes():
+        fail("16a: the depth file does not read back bit for bit")
+    groups = {}
+    t0 = time.perf_counter()
+    with hdf5.File(work / "cache.h5", "w") as f:
+        for i in range(MD16_CACHE_GROUPS):
+            name = f"Undistorted_SfM/{MD16_SCENE}/images/{(i * 7919) % 100003}.jpg"
+            n = 64 + i % 7
+            groups[name] = {"keypoints": rng.rand(n, 2).astype(np.float32) * 1600,
+                            "keypoint_scores": rng.rand(n).astype(np.float16),
+                            "descriptors": rng.randn(n, 32).astype(np.float32),
+                            "keypoint_mask": rng.rand(n) > 0.1,
+                            "depth_keypoints": rng.rand(n).astype(np.float64)}
+            grp = f.create_group(name)
+            for k, v in groups[name].items():
+                grp.create_dataset(k, data=v)
+    cache_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with hdf5.File(work / "cache.h5", "r") as f:
+        images = f[f"Undistorted_SfM/{MD16_SCENE}/images"]
+        if len(images) != MD16_CACHE_GROUPS or images.keys() != sorted(images.keys()):
+            fail(f"16a: the cache lists {len(images)} image groups, unsorted or not "
+                 f"{MD16_CACHE_GROUPS}")
+        for name, want in groups.items():
+            for k, v in want.items():
+                got = np.asarray(f[name][k])
+                if got.dtype != v.dtype or got.shape != v.shape or got.tobytes() != v.tobytes():
+                    fail(f"16a: {name}/{k} does not read back bit for bit")
+    cache_read = time.perf_counter() - t0
+    log(f"[hdf5] 1600 x 1200 float32 depth: written in {write_ms:.2f} ms, read in "
+        f"{statistics.median(times):.2f} ms (median of 7, warm, host clock), bit for bit; a cache "
+        f"of {MD16_CACHE_GROUPS} image groups x 5 datasets (a 4-level tree of groups) written in "
+        f"{cache_write:.2f} s, every dataset read back bit for bit in {cache_read:.2f} s")
+
+
+def build_megadepth_scene(root):
+    """16b: megadepth/ in the reference's layout, scene MD16_SCENE: MD16_VIEWS
+    views of one multi-plane scene rendered by `render_view` at MD16_SIZE
+    (landscape, or portrait for MD16_PORTRAIT) with exact depth and poses,
+    written as 8-bit PNG with depth in HDF5 by the port's writer; the
+    committed JPEG pair of phase 15 listed without depth, and one view
+    without an image (None entries, as real scene_info files have); the
+    overlaps spread over (0.1, 0.7) so that each of the configuration's
+    three bins holds more than its 200 pairs. Returns the data root."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from gluefactory_tpu_torch.datasets.homographies import generate_texture_image
+    from gluefactory_tpu_torch.datasets.synthetic_two_view import render_view
+    from gluefactory_tpu_torch.geometry.utils import so3exp_map
+    from gluefactory_tpu_torch.utils import hdf5
+
+    data = root / "megadepth"
+    img_dir = data / "Undistorted_SfM" / MD16_SCENE / "images"
+    depth_dir = data / "depth_undistorted" / MD16_SCENE
+    for d in (img_dir, depth_dir, data / "scene_info"):
+        d.mkdir(parents=True)
+    rng = np.random.RandomState(1600)
+    planes = [(generate_texture_image(rng, (1024, 1024)), 9.0, None)]
+    for _ in range(4):
+        cx, cy = rng.uniform(-2.0, 2.0, 2)
+        sx, sy = rng.uniform(1.5, 3.0, 2)
+        planes.append((generate_texture_image(rng, (512, 512)), 4.0 + rng.rand() * 3.0,
+                       (cx - sx / 2, cy - sy / 2, cx + sx / 2, cy + sy / 2)))
+    planes.sort(key=lambda p: -p[1])
+    cams = []
+    for i in range(MD16_VIEWS):
+        w, h = MD16_SIZE[::-1] if i in MD16_PORTRAIT else MD16_SIZE
+        f = 0.9 * max(w, h)
+        K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+        R = so3exp_map(torch.from_numpy((rng.randn(3) * 0.06).astype(np.float32)))
+        t = rng.randn(3) * np.array([0.5, 0.3, 0.2])
+        cams.append((K, R.numpy().astype(np.float64), t, (w, h)))
+
+    def render(i):
+        K, R, t, size = cams[i]
+        img, depth, _ = render_view(K, R, t, planes, size)
+        write_png16(img_dir / f"{i}.png", (img[..., 0] * 255 + 0.5).astype(np.uint8), bits=8)
+        with hdf5.File(depth_dir / f"{i}.h5", "w") as f:
+            f.create_dataset("/depth", data=depth)
+        return float((depth > 0).mean())
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        covered = list(pool.map(render, range(MD16_VIEWS)))
+    render_s = time.perf_counter() - t0
+    rel = lambda p: str(p.relative_to(data))  # noqa: E731
+    image_paths = [rel(img_dir / f"{i}.png") for i in range(MD16_VIEWS)]
+    depth_paths = [rel(depth_dir / f"{i}.h5") for i in range(MD16_VIEWS)]
+    poses = [np.block([[R, t[:, None]], [np.zeros((1, 3)), np.ones((1, 1))]])
+             for _, R, t, _ in cams]
+    intrinsics = [K for K, _, _, _ in cams]
+    manifest = json.loads((CODECS / "manifest.json").read_text())["megadepth_pair0"]
+    for name, K, T in zip(manifest["images"], ("K0", "K1"), (np.eye(4), manifest["T_0to1"])):
+        (img_dir / name).write_bytes((CODECS / name).read_bytes())
+        image_paths.append(rel(img_dir / name))
+        depth_paths.append(None)  # listed without depth: never sampled
+        intrinsics.append(np.array(manifest[K]))
+        poses.append(np.array(T))
+    image_paths.append(None)  # a view without an image
+    depth_paths.append(rel(depth_dir / "0.h5"))
+    intrinsics.append(intrinsics[0])
+    poses.append(poses[0])
+    n = len(image_paths)
+    overlap = rng.uniform(0.1, 0.7, (n, n))
+    overlap = ((overlap + overlap.T) / 2).astype(np.float32)
+    overlap[:MD16_VIEWS, :MD16_VIEWS] = rng.uniform(0.1, 0.7, (MD16_VIEWS, MD16_VIEWS))
+    overlap = np.triu(overlap, 1) + np.triu(overlap, 1).T
+    np.savez(data / "scene_info" / f"{MD16_SCENE}.npz",
+             image_paths=np.array(image_paths, object), depth_paths=np.array(depth_paths, object),
+             poses=np.array(poses, np.float32), intrinsics=np.array(intrinsics, np.float32),
+             overlap_matrix=overlap)
+    log(f"[md16b] scene {MD16_SCENE}: {MD16_VIEWS} views rendered ({len(MD16_PORTRAIT)} "
+        f"portrait) at {MD16_SIZE[0]} x {MD16_SIZE[1]}, depth covering "
+        f"{min(covered):.3f}-{max(covered):.3f} of a view, PNG + HDF5 depth, in {render_s:.2f} s on "
+        "8 threads; the committed JPEG pair listed without depth, one view without an image")
+    return data
+
+
+def loader_split(split, views=4):
+    """Host ms a view of the MegaDepth loader's parts, medians over `views`
+    views of the scene: the image decode (`read_image`), the preprocessing
+    (area resize and pad), the HDF5 depth read and its nearest resize."""
+    import statistics
+
+    from gluefactory_tpu_torch.datasets.megadepth import read_depth
+    from gluefactory_tpu_torch.datasets.utils import read_image, resize_image
+
+    parts = {"decode": [], "resize + pad": [], "depth read": [], "depth resize": []}
+    for idx in range(views):
+        scene = split.scenes[0]
+        t0 = time.perf_counter()
+        img = read_image(split.root / str(split.images[scene][idx]), split.conf.grayscale)
+        t1 = time.perf_counter()
+        data = split.preprocessor(img)
+        t2 = time.perf_counter()
+        depth = read_depth(split.root / str(split.depths[scene][idx]))
+        t3 = time.perf_counter()
+        vw, vh = data["image_size"].astype(int)
+        resize_image(depth, (vw, vh), interp="nearest")
+        t4 = time.perf_counter()
+        for key, a, b in zip(parts, (t0, t1, t2, t3), (t1, t2, t3, t4)):
+            parts[key].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def md16_trainer(conf, flash=True):
+    """A built trainer of the recipe with the committed weights grafted (the
+    configuration names no load_experiment)."""
+    from gluefactory_tpu_torch.train.trainer import Trainer, graft_state
+    from gluefactory_tpu_torch.utils.config import merge
+    from gluefactory_tpu_torch.weights import load_hermetic
+
+    trainer = Trainer(merge(conf, {"model": {"matcher": {"flash": flash}}}), device="cuda")
+    trainer.build()
+    graft_state(trainer.model, load_hermetic(device="cuda"))
+    return trainer
+
+
+def check_md_training(conf):
+    """16c: the recipe through the trainer at its shape (1024 px square-padded,
+    2048 keypoints forced, 32 pairs, LightGlue 9 x 256 fp32 checkpointed): the
+    loader alone; the ground truth on the card against the CPU on the same
+    keypoints; the first step against the plain path; MD16_STEPS timed steps
+    after a warm-up with the attention counts set to 0 just before and read
+    just after; a step fed by the loader. At a batch that does not fit,
+    the failing allocation is logged and the batch halved. Returns the
+    launches a step and the batch run."""
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.utils.tensor import batch_to_device
+
+    trainer = md16_trainer(conf)
+    mconf, econf = trainer.model.matcher.conf, trainer.model.extractor.conf
+    if (mconf.n_layers, mconf.descriptor_dim, mconf.mp, mconf.checkpointed) != (9, D, False, True) \
+            or (int(econf.max_num_keypoints), bool(econf.force_num_keypoints)) != (MD16_N, True) \
+            or int(conf["data"]["batch_size"]) != MD16_B:
+        fail("16c: the configuration is not LightGlue 9 x 256 fp32 checkpointed on 2048 forced "
+             "keypoints at 32 pairs")
+    split = trainer.dataset.get_dataset("train")
+    t0 = time.perf_counter()
+    loader = trainer.dataset.get_data_loader("train", epoch=0)
+    host = [next(loader)]
+    loader_s = time.perf_counter() - t0
+    del loader
+    side = int(conf["data"]["preprocessing"]["resize"])
+    shapes = {tuple(b[v]["image"].shape) for b in host for v in ("view0", "view1")}
+    if shapes != {(MD16_B, side, side, 3)}:
+        fail(f"16c: batches of {shapes}, expected ({MD16_B}, {side}, {side}, 3)")
+    log(f"[md16c] {len(split)} pairs sampled from {len(split.scenes)} scene (3 bins); the loader "
+        f"alone (the configuration's num_workers {conf['data'].get('num_workers', 0)}): "
+        f"{MD16_B / loader_s:.2f} pairs/s ({MD16_B} pairs of 2 PNG reads at "
+        f"{MD16_SIZE[0]} px, area resizes to {side}, 2 HDF5 depth reads and pads each, "
+        f"{loader_s:.2f} s)")
+    parts = loader_split(split)
+    log("[md16c] the loader's parts, host ms a view (median of 4): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+
+    b = MD16_B
+    while True:
+        oom = None
+        try:
+            batches = [batch_to_device(batch_head(x, b), "cuda") for x in host]
+            first = batches[0]
+            with torch.no_grad():
+                feats = {f"{k}{i}": t for i, v in enumerate(("view0", "view1"))
+                         for k, t in trainer.model.extractor(first[v]).items()}
+            if feats["keypoints0"].shape[1:] != (MD16_N, 2):
+                fail(f"16c: keypoints {tuple(feats['keypoints0'].shape)}")
+            n = MD16_GT_PAIRS
+            gt = trainer.model.ground_truth(batch_head({**first, **feats}, n))
+            cpu_gt = get_model("depth_matcher")(dict(conf["model"]["ground_truth"]),
+                                                device="cpu")(
+                batch_to_device(batch_head({**first, **feats}, n), "cpu"))
+            for k in GT_KEYS:
+                if not torch.equal(gt[k].cpu(), cpu_gt[k]):
+                    fail(f"16c: {k} on the card differs from the CPU's on "
+                         f"{int((gt[k].cpu() != cpu_gt[k]).sum())} entries")
+            positives = float((gt["gt_matches0"] >= 0).sum(-1).float().mean())
+            del feats, gt
+            held = hold_first_step(trainer, lambda: md16_trainer(conf, flash=False), first,
+                                   f"16c at {b} pairs")
+            log(f"[md16c] {b} pairs x {MD16_N} keypoints at {side} x {side}: ground truth of "
+                f"{n} pairs on the card equal to the CPU's ({', '.join(GT_KEYS)}), "
+                f"{positives:.1f} positives a pair; " + held)
+            ms, counts, peak, history = timed_steps(trainer, batches, MD16_STEPS)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            oom = str(e).splitlines()[0]
+        # outside the handler, so that the failed step's tensors are released
+        batches = first = None
+        for param in trainer.model.parameters():
+            param.grad = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[md16c] batch {b} does not fit: {oom}")
+        if b <= 4:
+            fail("16c: no batch of 4 pairs or more fits")
+        b //= 2
+    per_step = {"K5": 18, "K6b": 18, "K7b self": 9, "K7b cross": 18}
+    expect_counts(counts, MD16_STEPS, "16c", **{k.replace(" ", "_"): v
+                                              for k, v in per_step.items()})
+    log(f"[md16c] {MD16_STEPS} steps after a warm-up at {b} pairs: {ms:.2f} ms a step "
+        f"({b * 1e3 / ms:.2f} pairs/s trained), peak {peak:.0f} MiB, launches a step "
+        + ", ".join(f"{k} {v // MD16_STEPS}" for k, v in counts.items() if v)
+        + "; losses total " + " ".join(f"{x['total']:.4f}" for x in history)
+        + ("" if b == MD16_B else f" (batch {b}: {MD16_B} does not fit, logged above)"))
+    del batches, first, host
+    torch.cuda.empty_cache()
+    # a step fed by the configuration's loader, from a fresh epoch
+    loader = trainer.dataset.get_data_loader("train", epoch=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fed = trainer.train_steps((batch_head(x, b) for x in loader), steps=1)
+    torch.cuda.synchronize()
+    fed_ms = (time.perf_counter() - t0) * 1e3
+    del loader
+    if not all(math.isfinite(x["total"]) for x in fed):
+        fail(f"16c: a step fed by the loader: {fed}")
+    log(f"[md16c] a step fed by the loader (its first batch included): {fed_ms:.2f} ms, against "
+        f"{ms:.2f} alone")
+    del trainer
+    torch.cuda.empty_cache()
+    return per_step, b
+
+
+def check_md_triplet(conf):
+    """16d: one `views: 3` batch of MD16_TRIPLETS triplets through
+    `triplet_pipeline` (the recipe's extractor, LightGlue in inference): K1 /
+    K2 / K4 launches of the stacked call; its matches against three
+    two-view calls on the same pairs fed the triplet's own features (the
+    view's `cache`), equal on at least 99%; and how far an extraction of
+    each pair's 8 views alone agrees with the stacked one's 24 (the bf16
+    convolutions' cuDNN algorithms follow the batch)."""
+    import torch
+
+    from gluefactory_tpu_torch.datasets.megadepth import MegaDepth
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.utils.config import merge
+    from gluefactory_tpu_torch.utils.tensor import batch_to_device
+    from gluefactory_tpu_torch.weights import load_hermetic
+
+    ds = MegaDepth(merge(conf["data"], {"views": 3, "batch_size": MD16_TRIPLETS}))
+    data = batch_to_device(next(iter(ds.get_data_loader("train", epoch=0))), "cuda")
+    mconf = merge(conf["model"], {"name": "triplet_pipeline",
+                                  "matcher": {"is_training": False, "checkpointed": False}})
+    if not mconf["allow_no_extract"]:
+        fail("16d: the configuration does not allow skipping the extraction")
+    state = load_hermetic(device="cuda")
+    triplet = get_model("triplet_pipeline")(mconf, device="cuda").eval()
+    triplet.load_state_dict(state)
+    two = get_model("two_view_pipeline")(merge(mconf, {"name": "two_view_pipeline"}),
+                                         device="cuda").eval()
+    two.load_state_dict(state)
+    feats = ("keypoints", "keypoint_scores", "descriptors", "keypoint_mask")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counts()
+        out = triplet(data)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        agree, kp_agree = [], []
+        for i, (a, c) in enumerate(((0, 1), (0, 2), (1, 2))):
+            suffix = ("0to1", "0to2", "1to2")[i]
+            views = {f"view{j}": {**data[f"view{v}"], "cache": {
+                k: out[f"{k}{j}_{suffix}"] for k in feats}} for j, v in enumerate((a, c))}
+            ref = two(views)
+            for k in ("matches0", "matches1"):
+                agree.append(float((out[f"{k}_{suffix}"] == ref[k]).float().mean()))
+            alone = two.extractor(data[f"view{a}"])["keypoints"]
+            kp_agree.append(float((alone == out[f"keypoints0_{suffix}"]).all(-1).float().mean()))
+    if counts != [9, 9, 1]:
+        fail(f"16d: launches K1, K2, K4 {counts} for the stacked call, expected [9, 9, 1]")
+    if min(agree) < 0.99:
+        fail(f"16d: the stacked matches equal the two-view calls' on {min(agree):.4f} < 0.99")
+    n_match = int((out["stacked"]["matches0"] >= 0).sum())
+    side = data["view0"]["image"].shape[1]
+    log(f"[md16d] {MD16_TRIPLETS} triplets ({3 * MD16_TRIPLETS} stacked pairs at {side} x {side}, "
+        f"{MD16_N} keypoints) through triplet_pipeline: launches K1 {counts[0]}, K2 {counts[1]}, "
+        f"K4 {counts[2]}; matches0 / matches1 equal to three two-view calls on the same features "
+        f"on {min(agree):.4f}-{max(agree):.4f}; {n_match} matches; an extraction of {MD16_TRIPLETS}"
+        f" views alone gives the stacked call's keypoints on {min(kp_agree):.4f}-"
+        f"{max(kp_agree):.4f} (bf16 convolutions, algorithms by batch)")
+    del triplet, two, data, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_md_cached(conf, work, b):
+    """16e: export_megadepth --method sp (the committed SuperPoint-open, full
+    resolution) over the scene, the port's reader checking the file; then one
+    step of `load_features.do: true` with `allow_no_extract` at batch b, in
+    which the extractor runs no forward (the loader still reads and resizes
+    every image: b is kept small)."""
+    import numpy as np
+    import torch
+
+    from gluefactory_tpu_torch.scripts.export_megadepth import export_megadepth
+    from gluefactory_tpu_torch.utils import hdf5
+    from gluefactory_tpu_torch.utils.config import merge
+    from gluefactory_tpu_torch.weights import HERMETIC
+
+    out_dir = work / "exports"
+    t0 = time.perf_counter()
+    files = export_megadepth("sp", MD16_N, ["train"], out_dir, dict(conf["data"]), HERMETIC,
+                             "cuda")
+    export_s = time.perf_counter() - t0
+    if [f.name for f in files] != [f"{MD16_SCENE}_sp_{MD16_N}.h5"]:
+        fail(f"16e: the export wrote {files}")
+    with hdf5.File(files[0], "r") as f:
+        images = f[f"Undistorted_SfM/{MD16_SCENE}/images"]
+        if len(images) != MD16_VIEWS:  # the views without depth or image are skipped
+            fail(f"16e: {len(images)} image groups, expected {MD16_VIEWS}")
+        grp = images["0.png"]
+        kp, valid = np.asarray(grp["keypoints"]), np.asarray(grp["valid_depth_keypoints"])
+        if kp.shape != (MD16_N, 2) or valid.dtype != bool or not valid.any() \
+                or sorted(grp.keys()) != sorted(["keypoints", "keypoint_scores", "descriptors",
+                                                 "keypoint_mask", "depth_keypoints",
+                                                 "valid_depth_keypoints"]):
+            fail(f"16e: group 0.png holds {sorted(grp.keys())}, keypoints {kp.shape}")
+    cconf = merge(conf, {"data": {"batch_size": b, "load_features": {
+        "do": True, "path": str(out_dir / f"{{scene}}_sp_{MD16_N}.h5"),
+        "padding_length": MD16_N}}})
+    if not cconf["model"]["allow_no_extract"]:
+        fail("16e: the configuration does not allow skipping the extraction")
+    trainer = md16_trainer(cconf)
+    calls = []
+    hook = trainer.model.extractor.register_forward_pre_hook(lambda m, a: calls.append(1))
+    loader = trainer.dataset.get_data_loader("train", epoch=0)
+    t0 = time.perf_counter()
+    batch = next(loader)
+    load_s = time.perf_counter() - t0
+    del loader
+    if batch["view0"]["cache"]["keypoints"].shape != (b, MD16_N, 2):
+        fail(f"16e: cached keypoints {batch['view0']['cache']['keypoints'].shape}")
+    torch.cuda.synchronize()
+    reset_step_counts()
+    t0 = time.perf_counter()
+    history = trainer.train_steps([batch], steps=1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = step_counts()
+    hook.remove()
+    if calls or not math.isfinite(history[0]["total"]) or history[0]["skipped_nonfinite"]:
+        fail(f"16e: {len(calls)} extractor forwards, losses {history[0]}")
+    expect_counts(counts, 1, "16e", K5=18, K6b=18, K7b_self=9, K7b_cross=18)
+    log(f"[md16e] export_megadepth --method sp: {MD16_VIEWS} views at full resolution in "
+        f"{export_s:.2f} s ({MD16_VIEWS / export_s:.2f} views/s), read back by the port's reader; "
+        f"a cached step at {b} pairs: no extractor forward, {step_ms:.2f} ms (its first step), "
+        f"total {history[0]['total']:.4f}, {history[0]['num_matchable']:.1f} matchable a pair; "
+        f"the loader's first batch in {load_s:.2f} s")
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+
+def check_mp_hdf5(work):
+    """16f: one MP batch from an HDF5 file that the port's writer wrote (the
+    `filename` source), through SuperPoint-open + LightGlue (the committed
+    weights, fp32) on the card."""
+    import numpy as np
+    import torch
+
+    from gluefactory_tpu_torch.datasets import get_dataset
+    from gluefactory_tpu_torch.datasets.homographies import generate_texture_image
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.utils import hdf5
+    from gluefactory_tpu_torch.utils.tensor import batch_to_device
+    from gluefactory_tpu_torch.weights import load_hermetic
+
+    rng = np.random.RandomState(11)
+    with hdf5.File(work / "mp.h5", "w") as f:
+        for i in range(MD16_MP_PAIRS):
+            optical = generate_texture_image(rng, (320, 256))[..., 0]
+            f.create_dataset(f"pair_{i:03d}/optical", data=optical)
+            f.create_dataset(f"pair_{i:03d}/thermal", data=(1.0 - optical)[..., None])
+    ds = get_dataset("mp_image_pairs")({"mp": {"filename": str(work / "mp.h5"),
+                                               "train_fraction": 0.5},
+                                        "test_batch_size": MD16_MP_PAIRS // 2})
+    batch = batch_to_device(next(iter(ds.get_data_loader("test"))), "cuda")
+    pipe = get_model("two_view_pipeline")({"extractor": {**MD_EXTRACTOR,
+                                                         "max_num_keypoints": 512},
+                                           "matcher": MD_LIGHTGLUE}, device="cuda").eval()
+    pipe.load_state_dict(load_hermetic(device="cuda"))
+    with torch.no_grad():
+        out = pipe(batch)
+    if batch["view0"]["image"].shape != (MD16_MP_PAIRS // 2, 256, 320, 1) or not torch_finite(
+            out["matching_scores0"]):
+        fail(f"16f: a batch of {tuple(batch['view0']['image'].shape)}")
+    log(f"[md16f] the MP filename source: {MD16_MP_PAIRS} pairs written by the port's HDF5 "
+        f"writer, a test batch of {batch['view0']['image'].shape[0]} at 256 x 320 through "
+        f"SuperPoint-open + LightGlue: {int((out['matches0'] >= 0).sum())} matches, finite")
+
+
+def run_megadepth_phase():
+    """Phase 16: the MegaDepth training recipe. Returns the launches of the
+    rows it adds."""
+    import shutil
+
+    from gluefactory_tpu_torch.utils.config import load_conf, merge
+
+    work = ROOT / "outputs" / "chip_smoke_megadepth"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        check_hdf5_io(work)
+        data = build_megadepth_scene(work / "data")
+        conf = merge(load_conf(MD16_CONF), {"data": {"data_dir": str(data)}})
+        per_step, b = check_md_training(conf)
+        check_md_triplet(conf)
+        check_md_cached(conf, work, min(b, MD16_CACHED_B))
+        check_mp_hdf5(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[md16] phase {time.perf_counter() - t0:.1f} s")
+    return {f"{k} recipe": v for k, v in per_step.items()}, b
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     global TRAIN_B
@@ -4586,6 +5122,21 @@ def main() -> int:
             ("K7b cross", f"K7b attention backward, cross form B={MD_B} {MD_N} x {MD_N} f32, "
                           "MegaDepth training", "222")):
         kernels.append(dict(name=name, key=f"{key} 2048", route="cuda", source=SRC_ATT,
+                            replaces=f"{PAL_ATT}:{line}", **att[key]))
+    # the MegaDepth recipe at its published shape (phase 16): 2048 keypoints, 32 pairs
+    att = {**check_self_attention(44, b=MD16_B, n=MD16_N),
+           **check_cross_attention("stacked", 45, b=MD16_B, n=MD16_N)}
+    s2 = 2 * MD16_B
+    for key, name, line in (
+            ("K5", f"K5 fused_attention_packed ({s2}, {MD16_N}, 256) f32, MegaDepth recipe",
+             "383"),
+            ("K6b", f"K6b fused_cross_attention_stacked ({s2}, {MD16_N}, 256) f32, MegaDepth "
+                    "recipe", "744"),
+            ("K7b self", f"K7b attention backward, self form ({s2}, {MD16_N}, 256) f32, "
+                         "MegaDepth recipe", "222"),
+            ("K7b cross", f"K7b attention backward, cross form B={MD16_B} {MD16_N} x {MD16_N} "
+                          "f32, MegaDepth recipe", "222")):
+        kernels.append(dict(name=name, key=f"{key} recipe", route="cuda", source=SRC_ATT,
                             replaces=f"{PAL_ATT}:{line}", **att[key]))
     # stage 2 of the hermetic loop (phase 12): 384 keypoints, 8 pairs. At this
     # shape a backward call's autograd and launch overhead outlasts its
@@ -4735,6 +5286,16 @@ def main() -> int:
     log(f"[time] phase 15 starts at {time.perf_counter() - t_start:.1f} s")
     # 15. the decoders, MegaDepth-1500 and ETH3D
     per_step.update(run_benchmarks_phase())
+    torch.cuda.empty_cache()
+    log(f"[time] phase 16 starts at {time.perf_counter() - t_start:.1f} s")
+    # 16. the MegaDepth training recipe
+    counts16, md_b = run_megadepth_phase()
+    per_step.update(counts16)
+    md_att = {k["key"]: k["ms"] * per_step[k["key"]] for k in kernels
+              if k.get("key", "").endswith(" recipe")}
+    log(f"[md16c] attention kernels a step at {md_b} pairs (kernel_ms of the 32-pair rows x "
+        f"launches): {sum(md_att.values()):.2f} ms ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in md_att.items()) + ")")
     torch.cuda.empty_cache()
     mp_att = {k["key"]: k["ms"] * per_step[k["key"]] for k in kernels
               if k.get("key") in ("K5 bf16", "K6b bf16", "K7b self bf16", "K7b cross bf16")}

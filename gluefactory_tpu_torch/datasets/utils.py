@@ -181,11 +181,16 @@ def resize_image(img: np.ndarray, size, fn: str = "max", interp: str = "area"):
 
 
 class ImagePreprocessor:
-    """Resize and optional zero pad to a fixed (w, h) box, with metadata.
+    """Resize and optional zero pad, with metadata.
 
     Output: image (H', W', C), image_size (w, h) of the valid region, scales
     (2,) = processed / original size (x, y): divide processed coordinates by
-    them to get back to the original frame.
+    them to get back to the original frame. `pad_to` pads (and crops) to a
+    fixed (w, h) box; `square_pad` pads the bottom and right to a square of
+    side max(h', w'), so that views of either orientation batch together
+    (with `resize: R` on the long side, the box [R, R]). The JAX package's
+    preprocessor documents `square_pad` but ignores it, which leaves a
+    MegaDepth batch of mixed orientations unstackable (ROADMAP Queue 3a).
     """
 
     default_conf = {
@@ -193,6 +198,7 @@ class ImagePreprocessor:
         "side": "long",  # "long" | "short" when resize is an int
         "interpolation": "area",
         "pad_to": None,  # (w, h) static output box
+        "square_pad": False,  # pad to a square of the longer side (unless pad_to)
         "grayscale": False,
     }
 
@@ -228,8 +234,11 @@ class ImagePreprocessor:
             "image_size": np.array([w, h], np.float32),
             "scales": scales,
         }
-        if conf.pad_to is not None:
-            tw, th = conf.pad_to
+        box = conf.pad_to
+        if box is None and conf.square_pad:
+            box = (max(h, w), max(h, w))
+        if box is not None:
+            tw, th = box
             padded = np.zeros((th, tw, img.shape[-1]), np.float32)
             padded[: min(h, th), : min(w, tw)] = img[: min(h, th), : min(w, tw)]
             out["image"] = padded

@@ -116,6 +116,10 @@ class TwoViewPipeline(BaseModel):
 
     def forward(self, data: dict) -> dict:
         self.check_required_keys(data)
+        return self.two_view_forward(data)
+
+    def two_view_forward(self, data: dict) -> dict:
+        """The forward on two-view data (`view0`, `view1`), unchecked."""
         if self._can_batch_extract(data):
             pred0, pred1 = self._extract_batched(data)
         else:

@@ -11,10 +11,14 @@ augmentation, in the JAX order. The val and test splits draw those from
 `RandomState(seed + idx)` as the JAX package does; its train split draws
 them unseeded, where the port seeds `seed + idx + 1_000_003 * (epoch + 1)`
 (`set_epoch`), the rule of the homography dataset. The HDF5 source
-(`filename`) is not ported: it raises (ROADMAP Queue 1, not portable).
+(`filename`, under DATA_PATH) holds one group a pair with aligned `optical`
+and `thermal` images, read by the port's own HDF5 reader (`utils/hdf5.py`);
+its pairs are the file's top-level groups, sorted.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -23,6 +27,8 @@ from ...datasets.base_dataset import BaseDataset
 from ...datasets.homographies import generate_texture_image
 from ...datasets.image_ops import fill_circle, gaussian_blur, warp_perspective_cv
 from ...geometry.homography import sample_homography_corners
+from ...settings import DATA_PATH
+from ...utils import hdf5
 
 
 def synthetic_thermal(optical: np.ndarray, rng) -> np.ndarray:
@@ -54,6 +60,13 @@ class _MPSplit:
         return len(self.names)
 
     def _load_pair(self, name):
+        if self.parent.h5_path is not None:
+            with hdf5.File(self.parent.h5_path, "r") as f:
+                grp = f[name]
+                optical = np.asarray(grp["optical"], np.float32)
+                thermal = np.asarray(grp["thermal"], np.float32)
+            return (optical[..., None] if optical.ndim == 2 else optical,
+                    thermal[..., None] if thermal.ndim == 2 else thermal)
         r = np.random.RandomState(self.parent.conf.seed + int(name.split("/")[-1]))
         optical = generate_texture_image(r, tuple(self.parent.conf.synthetic.size))
         return optical, synthetic_thermal(optical, r)
@@ -93,7 +106,7 @@ class _MPSplit:
 class ImagePairDataset(BaseDataset):
     default_conf = {
         "name": "mp_image_pair",
-        "filename": None,  # the HDF5 source: not ported
+        "filename": None,  # an HDF5 file under DATA_PATH; None: synthetic pairs
         "synthetic": {"pool": 64, "size": [320, 256]},
         "train_fraction": 0.9,
         "augmentation": {
@@ -106,12 +119,14 @@ class ImagePairDataset(BaseDataset):
     }
 
     def _init(self, conf):
-        if conf.filename:
-            raise NotImplementedError(
-                "the HDF5 source of the multispectral dataset is not ported (h5py is outside "
-                "the port; ROADMAP Queue 1, not portable)")
         self.photo_aug = augmentations[conf.augmentation.photometric.get("name", "dark")]()
-        names = [f"synthetic/{i:05d}" for i in range(int(conf.synthetic.pool))]
+        if conf.filename:
+            self.h5_path = Path(DATA_PATH) / conf.filename
+            with hdf5.File(self.h5_path, "r") as f:
+                names = sorted(f.keys())
+        else:
+            self.h5_path = None
+            names = [f"synthetic/{i:05d}" for i in range(int(conf.synthetic.pool))]
         n_train = int(len(names) * conf.train_fraction)
         self._splits = {"train": names[:n_train], "val": names[n_train:],
                         "test": names[n_train:]}

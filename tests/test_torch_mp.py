@@ -142,9 +142,52 @@ def test_train_split_is_seeded_by_epoch():
     assert not np.array_equal(split[3]["thermal"]["image"], a)
 
 
-def test_hdf5_source_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def _mp_h5(path, n=12, libver="earliest"):
+    """An MP pair file in the reference's schema, written by h5py: a group a
+    pair with aligned `optical` (H, W) and `thermal` (H, W, 1) images."""
+    import h5py
+
+    rng = np.random.RandomState(4)
+    with h5py.File(path, "w", libver=libver) as f:
+        for i in range(n):
+            g = f.create_group(f"pair_{(i * 7) % n:03d}")
+            g["optical"] = rng.rand(96, 128).astype(np.float32)
+            g["thermal"] = rng.rand(96, 128, 1).astype(np.float64)
+
+
+def test_hdf5_source_raises(tmp_path, monkeypatch):
+    """The HDF5 source raises on a file that is not there, and names what
+    the port's reader refuses (a file of h5py's libver='latest')."""
+    monkeypatch.setattr(tmp_ds, "DATA_PATH", tmp_path)
+    with pytest.raises(FileNotFoundError):
         tmp_ds.ImagePairDataset({"filename": "multipoint/training.hdf5"})
+    _mp_h5(tmp_path / "latest.h5", n=2, libver="latest")
+    with pytest.raises(ValueError, match="superblock v3"):
+        tmp_ds.ImagePairDataset({"filename": "latest.h5"})
+
+
+@pytest.mark.parametrize("split,idx", [("train", 0), ("val", 0), ("test", 1)])
+def test_hdf5_source_matches_jax(tmp_path, monkeypatch, split, idx):
+    """The `filename` source on an h5py-written file against the JAX
+    package's: the same names and splits, and the same pair, augmented (val /
+    test; the JAX train split draws its augmentation unseeded, so there the
+    images are held without it)."""
+    _mp_h5(tmp_path / "mp.h5")
+    monkeypatch.setattr(jmp, "DATA_PATH", tmp_path)
+    monkeypatch.setattr(tmp_ds, "DATA_PATH", tmp_path)
+    aug = AUG if split != "train" else {"photometric": {"enable": False},
+                                        "homographic": {"enable": False}}
+    conf = {"filename": "mp.h5", "augmentation": aug}
+    ref_ds, out_ds = jmp.ImagePairDataset(conf), tmp_ds.ImagePairDataset(conf)
+    ref, out = ref_ds.get_dataset(split), out_ds.get_dataset(split)
+    assert out.names == ref.names and len(out) == {"train": 10, "val": 2, "test": 2}[split]
+    r, o = ref[idx], out[idx]
+    assert o["name"] == r["name"]
+    for key in ("optical", "thermal"):
+        assert o[key]["image"].shape == (96, 128, 1) and o[key]["image"].dtype == np.float32
+        np.testing.assert_allclose(o[key]["image"], r[key]["image"], rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(o[key]["homography"], r[key]["homography"])
+        np.testing.assert_array_equal(o[key]["valid_mask"], r[key]["valid_mask"])
 
 
 def test_bridge_matches_jax():

@@ -87,6 +87,7 @@ def test_pipeline_matches_jax_with_hermetic_weights():
     lambda: MPPipeline(),
     lambda: get_model("superpoint_magicleap")(),
     lambda: get_model("gluefactory_tpu_torch.multipoint.models.multipoint")(),
+    lambda: get_model("triplet_pipeline")(CONF),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -114,7 +115,9 @@ def test_port_imports_no_jax():
             "mp_image_pairs.py", "superpoint_magicleap.py", "layers.py", "distributed.py",
             "stdout_capturing.py", "sift_tpu.py", "keynet_hardnet.py", "aliked.py", "disk.py",
             "disk_official.py", "grid_extractor.py", "mixed.py", "dinov2.py", "image_codecs.py",
-            "image_pairs.py", "megadepth1500.py", "eth3d.py", "image_folder.py"} <= names
+            "image_pairs.py", "megadepth1500.py", "eth3d.py", "image_folder.py", "hdf5.py",
+            "megadepth.py", "cache_loader.py", "triplet_pipeline.py",
+            "export_megadepth.py"} <= names
     multipoint = {p.relative_to(ROOT / "gluefactory_tpu_torch" / "multipoint").as_posix()
                   for p in files if "multipoint" in p.parts}
     assert {"datasets/image_pair_dataset.py", "models/multipoint.py", "models/xpoint.py",
