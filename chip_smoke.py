@@ -208,7 +208,27 @@ extractors and the MegaDepth training recipe on one GPU.
      export_megadepth --method sp over the scene, read back, then a step of
      8 pairs with `load_features.do` in which the extractor runs no
      forward; (f) an MP batch from an HDF5 file the port's writer wrote. The
-     kernel rows add K5, K6b and K7b at the recipe's (64, 2048, 256).
+     kernel rows add K5, K6b and K7b at the recipe's (64, 2048, 256);
+ 17. the SfM/SLAM layer (no kernel of its own), in a process of its own
+     (`--sfm-phase`: the earlier phases' profiler sessions slow every later
+     launch): (a) `slam_scale_run.run` at 60 keyframes with every bar of
+     tests/test_slam.py::TestSlamLoopClosureScale, then the loop-closing run
+     of docs/slam_scale.md (120 keyframes, 2500 landmarks, 64-D
+     descriptors, 0.35 px noise, BA window 6 every 4, closure every 4th
+     keyframe against 8 candidates in one `match_pairs` call): keyframes/s,
+     landmarks, closures, ATE before and after the pose graph, the host
+     clock's shares (relative pose, BA, closure matching, the numpy matcher,
+     the rest); (b) `bundle_adjust` at C = 64, P = 65536, K = 8 for 10
+     iterations in float32 and float64: ms an iteration, device ms and
+     launches of a call, its host reads (torch's sync debug mode: 0), peak
+     memory, a second call equal bit for bit (the scatter-adds sum in a fixed
+     order), the cost falling and float32 within BA_COST_BAR of float64; (c)
+     the 120-keyframe loop's pose graph, 25 iterations: ms a call, the cost,
+     0 host reads; (d) `distributed_ba_step` on two gloo ranks on the one
+     card against one process's `ba_gn_step` (float64 within SFM_DDP_RTOL);
+     (e) the 8 closure pairs of keyframe 116 in one `match_pairs` call
+     against 8 single calls; (f) the device's busy share over one cycle of
+     the loop (keyframes 120-123) under torch.profiler.
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -4991,6 +5011,378 @@ def run_megadepth_phase():
     return {f"{k} recipe": v for k, v in per_step.items()}, b
 
 
+# ----------------------------------------------------------------- phase 17
+# the bundle adjustment window of gluefactory_tpu/sfm/ba.py's docstring (C <= 64
+# cameras) over a landmark count a windowed SLAM map reaches, 8 observations a track
+BA_C, BA_P, BA_K = 64, 65536, 8
+# bundle_adjust's float32 final cost against the same code in float64 on the
+# card (relative): the monocular scale is free, so the two loops take steps
+# that differ along it and compare costs equal to rounding at convergence;
+# read 2.85e-8 on the H100 (float32 lambda 0.256, float64 6.25e-5 after 10
+# iterations: other accept/reject sequences once converged)
+BA_COST_BAR = 1e-6
+SFM_DDP_RTOL = 1e-5  # two gloo ranks against one process's ba_gn_step (float64)
+
+
+def sfm_ba_problem(seed, C, P, K, dtype, device):
+    """A BA problem like tests/test_sfm.py's `make_ba_problem`: C cameras on
+    an arc (yaw +-0.125 rad, 0.8 units wide) observing P points in
+    [-2, 2] x [-1.5, 1.5] x [4, 8], K distinct cameras a point, 0.5 px noise,
+    the cameras but the gauge camera 0 perturbed by 0.02 rad / 0.04 units and
+    the points by 0.05 units. Returns the problem and its initial cost."""
+    import numpy as np
+    import torch
+
+    from gluefactory_tpu_torch.geometry.utils import so3exp_map
+    from gluefactory_tpu_torch.sfm.ba import BAProblem, ba_cost
+
+    rng = np.random.RandomState(seed)
+    f, cx, cy = 500.0, 320.0, 240.0
+    K_mat = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1.0]])
+    frac = np.arange(C) / C - 0.5
+    aa = np.stack([np.zeros(C), 0.25 * frac, np.zeros(C)], -1) + rng.randn(C, 3) * 0.01
+    R_gt = so3exp_map(torch.from_numpy(aa)).numpy()
+    t_gt = np.stack([0.8 * frac, np.zeros(C), np.zeros(C)], -1) + rng.randn(C, 3) * 0.01
+    X_gt = rng.uniform([-2, -1.5, 4], [2, 1.5, 8], (P, 3))
+    cam_idx = np.argsort(rng.rand(P, C), axis=1)[:, :K].astype(np.int32)
+    p_cam = np.einsum("pkij,pj->pki", R_gt[cam_idx], X_gt) + t_gt[cam_idx]
+    uv = p_cam[..., :2] / p_cam[..., 2:] * f + np.array([cx, cy]) + rng.randn(P, K, 2) * 0.5
+    R0 = so3exp_map(torch.from_numpy(rng.randn(C, 3) * 0.02)).numpy() @ R_gt
+    t0 = t_gt + rng.randn(C, 3) * 0.04
+    R0[0], t0[0] = R_gt[0], t_gt[0]
+    X0 = X_gt + rng.randn(P, 3) * 0.05
+
+    def dev(x, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=device)
+
+    problem = BAProblem(dev(R0), dev(t0), dev(X0), dev(cam_idx, torch.int32), dev(uv),
+                        torch.ones(P, K, dtype=torch.bool, device=device), dev(K_mat))
+    return problem, float(ba_cost(problem))
+
+
+def host_reads(fn):
+    """(fn's result, the synchronising CUDA calls it made): torch's sync
+    debug mode in "warn", each synchronising call one warning."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    return out, len(syncs), [str(w.message)[:120] for w in syncs[:3]]
+
+
+def check_slam_runs():
+    """17a: `slam_scale_run.run` at 60 keyframes with every bar of
+    tests/test_slam.py::TestSlamLoopClosureScale, then the loop-closing run
+    of docs/slam_scale.md at 120 keyframes through `LoopClosingSlam`, with the
+    host clock's shares. Returns the 120-keyframe run (corrected by its pose
+    graph) and its pose graph before the correction (17c)."""
+    import numpy as np
+
+    from gluefactory_tpu_torch.scripts import slam_scale_run
+    from gluefactory_tpu_torch.sfm.metrics import camera_centers
+
+    def report(n, stats, wall):
+        log(f"[sfm17a] {n} keyframes: {stats['keyframes_per_s']:.3f} keyframes/s, "
+            f"{stats['n_landmarks']} landmarks, {stats['closures_found']} closures of "
+            f"{stats['pairs_checked']} pairs checked ({stats['pairs_per_call']:.0f} a "
+            f"match_pairs call), ATE RMSE before the pose graph {stats['ate_before_pg']:.4f}, "
+            f"after {stats['ate_after_pg']:.4f}; pose graph {stats['pose_graph_s'] * 1e3:.1f} ms "
+            f"(25 iterations; the first call in a process includes torch.func's set-up); run "
+            f"{wall:.1f} s")
+        if not (stats["closures_found"] >= 1 and stats["n_landmarks"] > 1000
+                and stats["ate_after_pg"] < stats["ate_before_pg"]
+                and stats["pairs_per_call"] == 8):
+            fail(f"{n}-keyframe loop-closing run: {stats}")
+
+    t0 = time.perf_counter()
+    stats = slam_scale_run.run(n_frames=60, verbose=False, device="cuda")
+    report(60, stats, time.perf_counter() - t0)
+    if not stats["ate_after_pg"] < 0.08:
+        fail(f"60-keyframe run: ATE after the pose graph {stats['ate_after_pg']:.4f} >= 0.08")
+
+    t0 = time.perf_counter()
+    cam, desc, frames, poses = slam_scale_run.make_loop_sequence(np.random.RandomState(0), 120)
+    slam = slam_scale_run.LoopClosingSlam(cam, device="cuda")
+    # host-clock shares of the run: each part returns host values, so its
+    # time includes its device work
+    spent = {"relative pose": 0.0, "BA": 0.0, "closure matching": 0.0,
+             "odometry matcher (numpy)": 0.0}
+
+    def clocked(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[name] += time.perf_counter() - t
+            return out
+        return run
+
+    inner = slam.slam
+    inner.relpose_fn = clocked("relative pose", inner.relpose_fn)
+    inner._run_ba = clocked("BA", inner._run_ba)
+    inner.matcher_fn = clocked("odometry matcher (numpy)", inner.matcher_fn)
+    slam.match_pairs = clocked("closure matching", slam.match_pairs)
+    t1 = time.perf_counter()
+    for uv, vis in frames:
+        slam.add_keyframe(uv, desc, vis)
+    dt = time.perf_counter() - t1
+    log("[sfm17a] 120 keyframes by the host clock (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in spent.items())
+        + f", the rest (tracks, triangulation, scale) {dt - sum(spent.values()):.2f} of {dt:.2f}")
+    gt = camera_centers(np.stack([R for R, _ in poses]), np.stack([t for _, t in poses]))
+    graph = slam.pose_graph()
+    before = slam.slam.evaluate_ate(gt)["ate_rmse"]
+    t1 = time.perf_counter()
+    slam.optimize()
+    pg_s = time.perf_counter() - t1
+    report(120, {"keyframes_per_s": 120 / dt, "n_landmarks": len(slam.slam.state.X),
+                 "closures_found": len(slam.closures),
+                 "pairs_checked": slam.pair_matches_checked,
+                 "pairs_per_call": slam.pair_matches_checked / max(slam.match_calls, 1),
+                 "ate_before_pg": before, "ate_after_pg": slam.slam.evaluate_ate(gt)["ate_rmse"],
+                 "pose_graph_s": pg_s}, time.perf_counter() - t0)
+    return slam, graph, desc, frames
+
+
+def check_slam_device_share(slam, desc, frames):
+    """17f, last, since launches stay slower in a process after a profiler
+    session: the device's busy share over one cycle of the run (a BA run, a
+    closure detection and three odometry steps), the 120-keyframe loop carried
+    on for keyframes 120-123 (its first frames again) under torch.profiler,
+    once (it adds keyframes)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        for uv, vis in frames[:4]:
+            slam.add_keyframe(uv, desc, vis)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e6
+    log(f"[sfm17f] keyframes 120-123 under torch.profiler: "
+        + (f"device busy {busy:.3f} s of {wall:.3f} s ({busy / wall:.4f}), {len(kernels) / 4:.0f} "
+           "launches a keyframe" if busy > 0 else "the profiler recorded no kernel: not measured"))
+
+
+def check_pose_graph(graph):
+    """17c: the 120-keyframe loop's pose graph (its odometry and closure
+    edges) through `optimize_pose_graph`, 25 iterations as the run takes."""
+    import torch
+
+    from gluefactory_tpu_torch.sfm.pose_graph import optimize_pose_graph, pg_cost
+
+    cost0 = float(pg_cost(graph))
+    (_, cost), reads, what = host_reads(lambda: optimize_pose_graph(graph, iterations=25))
+    ms = timed(lambda: optimize_pose_graph(graph, iterations=25), 3, warmup=1)
+    log(f"[sfm17c] pose graph N = {graph.R.shape[0]}, {graph.edges.shape[0]} edges, 25 LM "
+        f"iterations: {ms:.2f} ms a call ({ms / 25:.2f} ms an iteration), cost {cost0:.6g} -> "
+        f"{float(cost):.6g}; {reads} host reads in the call {what}")
+    if not (float(cost) <= cost0 and reads == 0):
+        fail("pose graph: the cost rose or the loop read the device")
+    torch.cuda.empty_cache()
+
+
+def check_bundle_adjust():
+    """17b: bundle_adjust at C = 64, P = 65536, K = 8, 10 LM iterations, in
+    float32 and in float64 on the card."""
+    import torch
+
+    from gluefactory_tpu_torch.sfm.ba import bundle_adjust
+
+    costs = {}
+    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        problem, cost0 = sfm_ba_problem(17, BA_C, BA_P, BA_K, dt, "cuda")
+        if name == "float32":
+            bundle_adjust(problem, iterations=1)  # first launches
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            (out, cost, lam), reads, what = host_reads(lambda: bundle_adjust(problem, 10))
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            again = bundle_adjust(problem, 10)[0]
+            same = all(torch.equal(a, b) for a, b in zip(out[:3], again[:3]))
+            ms = timed(lambda: bundle_adjust(problem, 10), 2, warmup=0)
+            dev_ms, launches, top = device_ms(lambda: bundle_adjust(problem, 10), 1, warmup=0,
+                                              top=4)
+            split = ", ".join(f"{n} {t:.2f}" for n, t in top)
+            log(f"[sfm17b] bundle_adjust C={BA_C} P={BA_P} K={BA_K} float32, 10 LM iterations: "
+                f"{ms / 10:.2f} ms an iteration (CUDA events), device {dev_ms:.2f} ms and "
+                f"{launches} launches a call ({split}), {reads} host reads in the call "
+                f"{what}, peak {peak:.0f} MiB above the problem; a second call equal bit for bit: "
+                f"{same}")
+            if reads or not same:
+                fail(f"bundle_adjust read the device {reads} times before it returned, or a "
+                     "second call differed")
+        else:
+            t0 = time.perf_counter()
+            _, cost, lam = bundle_adjust(problem, 10)
+            float(cost)
+            log(f"[sfm17b] float64 on the card: {(time.perf_counter() - t0) * 1e2:.2f} ms an "
+                "iteration (host clock)")
+        costs[name] = (cost0, float(cost), float(lam))
+        del problem
+        torch.cuda.empty_cache()
+    (c0, c32, lam32), (_, c64, lam64) = costs["float32"], costs["float64"]
+    gap = abs(c32 - c64) / c64
+    log(f"[sfm17b] cost {c0:.6g} -> float32 {c32:.6g} (lambda {lam32:.3g}), float64 {c64:.6g} "
+        f"(lambda {lam64:.3g}): float32 within {gap:.3g} of float64 (bar {BA_COST_BAR:g})")
+    if not (c32 < c0 and gap <= BA_COST_BAR):
+        fail("bundle_adjust: the float32 cost did not fall or left float64's")
+
+
+def sfm_rank_main(rank, port, work):
+    """One rank of phase 17d, started by `check_sfm_ranks`: its landmark
+    shard's `distributed_ba_step` in float32 and float64."""
+    import os
+
+    import torch
+
+    from gluefactory_tpu_torch.sfm.ba import distributed_ba_step
+    from gluefactory_tpu_torch.train import distributed
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    distributed.init_distributed("gloo", "cuda:0")
+    try:
+        out = {}
+        for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+            problem, _ = sfm_ba_problem(18, BA_C, BA_P // 4, BA_K, dt, "cuda:0")
+            P = problem.X.shape[0]
+            sl = slice(rank * P // 2, (rank + 1) * P // 2)
+            R, t, X = distributed_ba_step(problem.R, problem.t, problem.X[sl],
+                                          problem.cam_idx[sl], problem.uv[sl],
+                                          problem.valid[sl], problem.K_mat,
+                                          torch.tensor(1e-3, dtype=dt, device="cuda:0"))
+            out[name] = (R.cpu(), t.cpu(), X.cpu())
+        torch.save(out, Path(work) / f"sfm_rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def check_sfm_ranks():
+    """17d: `distributed_ba_step` on two gloo ranks on the one card (the
+    landmarks halved between them) against one process's `ba_gn_step`."""
+    import shutil
+    import socket
+
+    import torch
+
+    from gluefactory_tpu_torch.sfm.ba import ba_gn_step
+
+    work = ROOT / "outputs" / "chip_smoke_sfm"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--sfm-rank",
+                               str(r), "--ddp-port", str(port), "--ddp-dir", str(work)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        fail("sfm ranks: a rank failed:\n" + "\n".join(o[-3000:] for o in outs))
+    ranks = [torch.load(work / f"sfm_rank{r}.pt") for r in range(2)]
+    shutil.rmtree(work, ignore_errors=True)
+    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        problem, _ = sfm_ba_problem(18, BA_C, BA_P // 4, BA_K, dt, "cuda")
+        ref = ba_gn_step(problem, torch.tensor(1e-3, dtype=dt, device="cuda"))
+        R, t = ranks[0][name][:2]
+        X = torch.cat([r[name][2] for r in ranks])
+        errs = [float((a.double() - b.cpu().double()).abs().max() / b.abs().max())
+                for a, b in ((R, ref.R), (t, ref.t), (X, ref.X))]
+        same = all(torch.equal(ranks[1][name][i], ranks[0][name][i]) for i in range(2))
+        log(f"[sfm17d] distributed_ba_step, two gloo ranks on the card, {BA_C} cameras, "
+            f"{BA_P // 4} landmarks halved, {name}: R / t / X within "
+            + " / ".join(f"{e:.3g}" for e in errs)
+            + f" of one process's ba_gn_step (relative to max|ref|); cameras equal on both "
+            f"ranks: {same}")
+        if not same or (name == "float64" and max(errs) > SFM_DDP_RTOL):
+            fail(f"distributed_ba_step {name} disagrees with one process (bar {SFM_DDP_RTOL:g} "
+                 "in float64)")
+
+
+def check_pair_matching():
+    """17e: the 8 closure candidates of the 120-keyframe loop's keyframe 116
+    through one `match_pairs` call against 8 single calls."""
+    import numpy as np
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.parallel.pair_matching import make_pair_matcher
+    from gluefactory_tpu_torch.scripts import slam_scale_run
+
+    _, desc, frames, _ = slam_scale_run.make_loop_sequence(np.random.RandomState(0), 120)
+    cands = list(np.linspace(0, 116 - 25 - 1, 8).astype(int))
+    uv, vis = frames[116]
+
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device="cuda")
+
+    batch = {"descriptors0": dev(np.stack([desc] * 8)), "descriptors1": dev(np.stack([desc] * 8)),
+             "keypoints0": dev(np.stack([frames[c][0] for c in cands])),
+             "keypoints1": dev(np.stack([uv] * 8)),
+             "keypoint_mask0": dev(np.stack([frames[c][1] for c in cands])),
+             "keypoint_mask1": dev(np.stack([vis] * 8))}
+    model = get_model("nearest_neighbor_matcher")({"mutual_check": True}, device="cuda")
+    match_pairs = make_pair_matcher(model)
+    pred = match_pairs(batch)
+    single = torch.cat([model({k: v[i:i + 1] for k, v in batch.items()})["matches0"]
+                        for i in range(8)])
+    ms = timed(lambda: match_pairs(batch), 5)
+    ms1 = timed(lambda: [model({k: v[i:i + 1] for k, v in batch.items()}) for i in range(8)], 5)
+    n = (pred["matches0"] >= 0).sum(-1).tolist()
+    log(f"[sfm17e] match_pairs: 8 pairs of 2500 keypoints in one call {ms:.3f} ms, 8 single "
+        f"calls {ms1:.3f} ms; matches a pair {n}; matches0 equal to the single calls: "
+        f"{torch.equal(pred['matches0'], single)}")
+    if not torch.equal(pred["matches0"], single):
+        fail("match_pairs: the batched call disagrees with single calls")
+
+
+def sfm_phase_main():
+    """Phase 17 in a process of its own (started by `run_sfm_phase`): the
+    earlier phases' profiler sessions leave every later launch slower, and
+    the SLAM driver is launch-bound."""
+    import torch
+
+    with torch.no_grad():
+        slam, graph, desc, frames = check_slam_runs()
+        check_pose_graph(graph)
+        check_bundle_adjust()
+        check_sfm_ranks()
+        check_pair_matching()
+        check_slam_device_share(slam, desc, frames)
+    return 0
+
+
+def run_sfm_phase():
+    """Phase 17: the SfM/SLAM layer on the card, as `chip_smoke.py
+    --sfm-phase` (its log passes through)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--sfm-phase"],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          timeout=600)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode:
+        fail(f"phase 17 exited with {proc.returncode}")
+    log(f"[sfm17] phase {time.perf_counter() - t0:.1f} s")
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     global TRAIN_B
@@ -5001,6 +5393,9 @@ def main() -> int:
     parser.add_argument("--ddp-rank", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--ddp-port", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--ddp-dir", type=str, default=None, help=argparse.SUPPRESS)
+    # phase 17, and one rank of its 17d
+    parser.add_argument("--sfm-phase", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--sfm-rank", type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     TRAIN_B = args.train_batch
     t_start = time.perf_counter()
@@ -5022,6 +5417,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.ddp_rank is not None:
         return ddp_rank_main(args.ddp_rank, args.ddp_port, args.ddp_dir)
+    if args.sfm_rank is not None:
+        return sfm_rank_main(args.sfm_rank, args.ddp_port, args.ddp_dir)
+    if args.sfm_phase:
+        return sfm_phase_main()
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5296,6 +5695,10 @@ def main() -> int:
     log(f"[md16c] attention kernels a step at {md_b} pairs (kernel_ms of the 32-pair rows x "
         f"launches): {sum(md_att.values()):.2f} ms ("
         + ", ".join(f"{k} {v:.2f}" for k, v in md_att.items()) + ")")
+    torch.cuda.empty_cache()
+    log(f"[time] phase 17 starts at {time.perf_counter() - t_start:.1f} s")
+    # 17. the SfM/SLAM layer
+    run_sfm_phase()
     torch.cuda.empty_cache()
     mp_att = {k["key"]: k["ms"] * per_step[k["key"]] for k in kernels
               if k.get("key") in ("K5 bf16", "K6b bf16", "K7b self bf16", "K7b cross bf16")}

@@ -108,6 +108,12 @@ class Camera(TensorWrapper):
         return (self._data,)
 
     @classmethod
+    def from_params(cls, width, height, fx, fy, cx, cy, dist=()) -> "Camera":
+        """A camera from its size, focal lengths, principal point and radial
+        distortion, packed in float32."""
+        return cls(torch.tensor([width, height, fx, fy, cx, cy, *dist], dtype=torch.float32))
+
+    @classmethod
     def from_calibration_matrix(cls, K) -> "Camera":
         K = torch.as_tensor(K)
         fx, fy, cx, cy = K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], K[..., 1, 2]

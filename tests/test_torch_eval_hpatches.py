@@ -14,6 +14,7 @@ side draws its own RANSAC noise). The port's chains meet the floors of
 """
 
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -63,23 +64,44 @@ def tree(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def chains(tree, tmp_path_factory):
-    """The port's LightGlue and NN chains and JAX's LightGlue chain, once."""
+    """The port's LightGlue and NN chains and JAX's LightGlue chain, once.
+    The two port chains share one extractor configuration, so the NN chain
+    takes the LightGlue chain's features of each image (the same forward on
+    the same pixels) instead of running SuperPoint again."""
+    import hashlib
+
     import gluefactory_tpu.datasets.hpatches as jhp
     from gluefactory_tpu.eval.hpatches import HPatchesPipeline as JaxPipeline
     from gluefactory_tpu_torch.eval.hpatches import HPatchesPipeline
+    from gluefactory_tpu_torch.models.extractors.superpoint_open import SuperPoint
 
     data_dir, root = tree
     out = tmp_path_factory.mktemp("eval")
-    runs = {}
-    for name, matcher in (("lg", LIGHTGLUE), ("nn", NN)):
-        pipe = HPatchesPipeline(_conf(matcher, {"data_dir": str(root)}), device="cpu")
-        runs[name] = pipe.run(out / name)[::2] + (out / name, pipe)
+    runs, features, forward, misses = {}, {}, SuperPoint.forward, []
+
+    def shared_forward(self, data):
+        image = data["image"].contiguous()
+        key = (tuple(image.shape), hashlib.sha1(image.numpy().tobytes()).hexdigest())
+        if key not in features:
+            misses.append(key)
+            features[key] = forward(self, data)
+        return dict(features[key])
+
     old = jhp.DATA_PATH
     jhp.DATA_PATH = data_dir
     try:
-        runs["jax"] = JaxPipeline(_conf(LIGHTGLUE)).run(out / "jax")[::2] + (out / "jax", None)
+        # JAX's chain runs in a thread beside the port's: each side's own work, overlapped
+        with ThreadPoolExecutor(1) as pool, pytest.MonkeyPatch.context() as mp:
+            jax_chain = pool.submit(JaxPipeline(_conf(LIGHTGLUE)).run, out / "jax")
+            mp.setattr(SuperPoint, "forward", shared_forward)
+            for name, matcher in (("lg", LIGHTGLUE), ("nn", NN)):
+                pipe = HPatchesPipeline(_conf(matcher, {"data_dir": str(root)}), device="cpu")
+                runs[name] = pipe.run(out / name)[::2] + (out / name, pipe)
+                runs[name + "_forwards"] = len(misses)
+            runs["jax"] = jax_chain.result()[::2] + (out / "jax", None)
     finally:
         jhp.DATA_PATH = old
+    assert runs["lg_forwards"] == runs["nn_forwards"] > 0  # the NN chain ran none of its own
     return runs
 
 

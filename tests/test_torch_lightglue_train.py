@@ -126,8 +126,11 @@ def test_inference_loss_reports_metrics():
     conf = {**BASE}
     data = _batch(5, 48, 48, True)
     jm, variables, jdata, tm, tdata = _both(conf, data)
-    rpred = jm.apply(variables, jdata)
-    rlosses, rmetrics = jm.apply(variables, rpred, jdata, method="loss")
+    def reference(v, d):
+        pred = jm.apply(v, d)
+        return pred, jm.apply(v, pred, d, method="loss")
+
+    rpred, (rlosses, rmetrics) = jax.jit(reference)(variables, jdata)
     pred = tm(tdata)
     assert not pred["log_assignment"].requires_grad  # inference records no graph
     losses, metrics = tm.loss(pred, tdata)

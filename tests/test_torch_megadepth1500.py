@@ -198,17 +198,18 @@ def errors_by_seed(chains, eval_on_jax_predictions):
     cores' for the other seeds. JAX's cores run under the device context of
     its eval phase, so they reuse the program that phase compiled, and are
     all dispatched before the port's cores run (JAX computes them
-    asynchronously meanwhile)."""
+    asynchronously meanwhile), after their draws."""
     import jax
 
     cases = [(seed, *m, T) for seed in SEEDS[1:]
              for m, T in zip(chains["jax_matches"].values(), chains["gt"])]
+    # the draws before the cores: drawn after, they would queue behind them
+    noises = [_jax_noise(len(p0), seed=seed) for seed, p0, *_ in cases]
     with jax.default_device(jax.local_devices(backend="cpu")[0]):
         jax_out = [_jax_core(p0, p1, valid, th, seed) for seed, p0, p1, valid, th, _ in cases]
     port_out = [port_ransac.ransac_relative_pose_core(
-        torch.from_numpy(p0), torch.from_numpy(p1), torch.from_numpy(valid),
-        _jax_noise(len(p0), seed=seed), float(th), refine_iters=4)
-        for seed, p0, p1, valid, th, _ in cases]
+        torch.from_numpy(p0), torch.from_numpy(p1), torch.from_numpy(valid), noise, float(th),
+        refine_iters=4) for (seed, p0, p1, valid, th, _), noise in zip(cases, noises)]
     errs = {"jax": [chains["jax"][1]["rel_pose_error_1.0"]],
             "port": [eval_on_jax_predictions["rel_pose_error_1.0"]]}
     for k, outs in (("jax", jax_out), ("port", port_out)):

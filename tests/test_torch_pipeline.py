@@ -26,7 +26,10 @@ from gluefactory_tpu_torch.estimators.homography.torch_ransac import TorchRansac
 from gluefactory_tpu_torch.eval.MP import MPPipeline
 from gluefactory_tpu_torch.eval.hpatches import HPatchesPipeline
 from gluefactory_tpu_torch.eval.synthetic import SyntheticHomographyPipeline
+from gluefactory_tpu_torch.geometry.wrappers import Camera
 from gluefactory_tpu_torch.models import get_model
+from gluefactory_tpu_torch.scripts.slam_scale_run import LoopClosingSlam
+from gluefactory_tpu_torch.sfm.slam import IncrementalSlam
 from gluefactory_tpu_torch.train.trainer import Trainer
 from gluefactory_tpu_torch.utils.config import load_conf
 from gluefactory_tpu_torch.weights import HERMETIC, load_hermetic
@@ -88,6 +91,8 @@ def test_pipeline_matches_jax_with_hermetic_weights():
     lambda: get_model("superpoint_magicleap")(),
     lambda: get_model("gluefactory_tpu_torch.multipoint.models.multipoint")(),
     lambda: get_model("triplet_pipeline")(CONF),
+    lambda: IncrementalSlam(Camera.from_params(480, 360, 420.0, 420.0, 240.0, 180.0), None),
+    lambda: LoopClosingSlam(Camera.from_params(480, 360, 420.0, 420.0, 240.0, 180.0)),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -117,7 +122,8 @@ def test_port_imports_no_jax():
             "disk_official.py", "grid_extractor.py", "mixed.py", "dinov2.py", "image_codecs.py",
             "image_pairs.py", "megadepth1500.py", "eth3d.py", "image_folder.py", "hdf5.py",
             "megadepth.py", "cache_loader.py", "triplet_pipeline.py",
-            "export_megadepth.py"} <= names
+            "export_megadepth.py", "ba.py", "pose_graph.py", "slam.py", "triangulation.py",
+            "metrics.py", "pair_matching.py", "slam_scale_run.py"} <= names
     multipoint = {p.relative_to(ROOT / "gluefactory_tpu_torch" / "multipoint").as_posix()
                   for p in files if "multipoint" in p.parts}
     assert {"datasets/image_pair_dataset.py", "models/multipoint.py", "models/xpoint.py",

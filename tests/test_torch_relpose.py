@@ -119,9 +119,13 @@ def _points(seed, outliers, n=256):
 
 
 def _jax_core(p0, p1, valid, th, seed=0):
-    return ransac_relative_pose_jit(jnp.asarray(p0), jnp.asarray(p1), jnp.asarray(valid),
-                                    jax.random.PRNGKey(seed), th=th, num_hypotheses=K_HYP,
-                                    refine_iters=4, guided_rounds=1)
+    """JAX's core as its eval phase calls it: on the host device (the eval's
+    `jax.default_device`) with a float32 threshold, so that every call shares
+    the eval's compiled program."""
+    with jax.default_device(jax.local_devices(backend="cpu")[0]):
+        return ransac_relative_pose_jit(jnp.asarray(p0), jnp.asarray(p1), jnp.asarray(valid),
+                                        jax.random.PRNGKey(seed), th=np.float32(th),
+                                        num_hypotheses=K_HYP, refine_iters=4, guided_rounds=1)
 
 
 @pytest.fixture(scope="module")
@@ -199,14 +203,16 @@ def core_runs():
     """JAX's core and the port's fed its draws on each case: {case: (port,
     JAX, true R, true t, valid)}."""
     th = float(np.float32(1.0) / np.float32(F_PX))
+    noise = _jax_noise(256)  # PRNGKey(0)'s, the draws of every case
+    cases = {case: _points(case[1], case[0]) for case in CASES}
+    # JAX's cores are dispatched first and run asynchronously beside the port's
+    refs = {case: _jax_core(p0, p1, valid, th) for case, (p0, p1, valid, _, _) in cases.items()}
     runs = {}
-    for outliers, seed in CASES:
-        p0, p1, valid, R, t = _points(seed, outliers)
-        ref = _jax_core(p0, p1, valid, th)
+    for case, (p0, p1, valid, R, t) in cases.items():
         out = port_ransac.ransac_relative_pose_core(
-            torch.from_numpy(p0), torch.from_numpy(p1), torch.from_numpy(valid), _jax_noise(256),
-            th, refine_iters=4)
-        runs[outliers, seed] = (out, ref, R, t, valid)
+            torch.from_numpy(p0), torch.from_numpy(p1), torch.from_numpy(valid), noise, th,
+            refine_iters=4)
+        runs[case] = (out, refs[case], R, t, valid)
     return runs
 
 
@@ -453,16 +459,17 @@ def errors_by_seed(chains, eval_on_jax_predictions):
     for the others."""
     errs = {"jax": [chains["jax"][1]["rel_pose_error_1.0"]],
             "port": [eval_on_jax_predictions["rel_pose_error_1.0"]]}
-    for seed in SEEDS[1:]:
-        row = {"jax": [], "port": []}
-        for (p0, p1, valid, th), T in zip(chains["jax_matches"].values(), chains["gt"]):
-            row["jax"].append(_rel_pose_err(_jax_core(p0, p1, valid, th, seed), T))
-            out = port_ransac.ransac_relative_pose_core(
-                torch.from_numpy(p0), torch.from_numpy(p1), torch.from_numpy(valid),
-                _jax_noise(len(p0), seed=seed), float(th), refine_iters=4)
-            row["port"].append(_rel_pose_err(out, T))
-        for k in errs:
-            errs[k].append(row[k])
+    cases = [(seed, m, T) for seed in SEEDS[1:]
+             for m, T in zip(chains["jax_matches"].values(), chains["gt"])]
+    # the draws first, then JAX's cores, which run asynchronously beside the port's
+    noises = [_jax_noise(len(m[0]), seed=seed) for seed, m, _ in cases]
+    jax_out = [_jax_core(*m, seed) for seed, m, _ in cases]
+    port_out = [port_ransac.ransac_relative_pose_core(
+        torch.from_numpy(p0), torch.from_numpy(p1), torch.from_numpy(valid), noise, float(th),
+        refine_iters=4) for ((p0, p1, valid, th), noise) in zip((m for _, m, _ in cases), noises)]
+    for k, outs in (("jax", jax_out), ("port", port_out)):
+        per_case = [_rel_pose_err(r, T) for r, (_, _, T) in zip(outs, cases)]
+        errs[k] += np.reshape(per_case, (len(SEEDS) - 1, -1)).tolist()
     return {k: np.array(v, np.float64) for k, v in errs.items()}
 
 

@@ -69,10 +69,10 @@ def test_superglue_matches_jax(m, n, masked, scores, sizes):
     data = _data(m + n, 2, m, n, masked, scores, sizes)
     jm = jax_model("superglue").from_conf(CONF)
     jdata = _convert(data, jnp.asarray)
-    variables = jm.init(jax.random.PRNGKey(m), jdata)
+    variables = jax.jit(jm.init)(jax.random.PRNGKey(m), jdata)
     # the dustbin score away from its initial 1, so that the bridge carries it
     variables = {"params": {**variables["params"], "bin_score": jnp.asarray(0.7)}}
-    ref = jax.tree.map(np.asarray, jm.apply(variables, jdata))
+    ref = jax.tree.map(np.asarray, jax.jit(jm.apply)(variables, jdata))
 
     tm = get_model("superglue")(CONF, device="cpu")
     tm.load_state_dict(superglue_from_flax(variables), strict=True)
@@ -90,7 +90,7 @@ def test_superglue_matches_jax(m, n, masked, scores, sizes):
 def test_superglue_bridge_is_strict_and_complete():
     data = _data(0, 1, 16, 16, False)
     jm = jax_model("superglue").from_conf(CONF)
-    variables = jm.init(jax.random.PRNGKey(0), _convert(data, jnp.asarray))
+    variables = jax.jit(jm.init)(jax.random.PRNGKey(0), _convert(data, jnp.asarray))
     state = superglue_from_flax(variables)
     assert len(state) == len(jax.tree.leaves(variables))
     tm = get_model("superglue")(CONF, device="cpu")
@@ -168,7 +168,7 @@ def test_superglue_loss_and_gradients_match_jax():
     data = _train_data()
     jdata = _convert(data, jnp.asarray)
     jm = jax_model("superglue").from_conf(TRAIN)
-    variables = jm.init(jax.random.PRNGKey(0), jdata)
+    variables = jax.jit(jm.init)(jax.random.PRNGKey(0), jdata)
 
     def loss_fn(p):
         losses, _ = jm.apply(p, jm.apply(p, jdata), jdata, method="loss")
