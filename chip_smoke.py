@@ -4,7 +4,9 @@ adaptive, training), SuperGlue, the benchmarks (HPatches, synthetic_pose,
 MP, MegaDepth-1500, ETH3D), the multispectral slice, the hermetic loop (the
 detector's pretraining -> LightGlue -> HPatches), the other training paths
 (bf16, a trainable extractor, SuperGlue, two processes), the other
-extractors and the MegaDepth training recipe on one GPU.
+extractors, the MegaDepth training recipe, the SfM/SLAM layer, XPoint's
+other encoders and homography heads, HomographyNet, homographic
+adaptation, the feature export and the training figures on one GPU.
 
     python3 chip_smoke.py [--train-batch PAIRS]
 
@@ -229,6 +231,20 @@ extractors and the MegaDepth training recipe on one GPU.
      (e) the 8 closure pairs of keyframe 116 in one `match_pairs` call
      against 8 single calls; (f) the device's busy share over one cycle of
      the loop (keyframes 120-123) under torch.profiler.
+ 18. the multipoint remainder, the exports and the figures (no kernel of
+     their own): (a) XPoint at its default width with the swin_lite, cbam and
+     vit encoders, b8 at 256 x 320: ms, the thermal routing, the card against
+     the CPU at b1 within 1e-3; (b) the pool, srhen and ms2cahe homography
+     heads on those features (card against CPU within 1e-3), HomographyNet at
+     its default widths on 128 x 128 pairs at b64: forward ms, 10 training
+     steps whose loss falls; (c) homographic adaptation, 32 warps of the
+     committed SuperPoint-open in fp32 at b8, 240 x 320, the card against the
+     CPU within 1e-4; (d) `export_local_features --method sp --n_kpts 2048`
+     over a homographies tree it writes (views/s, K8 under fused_block0), a
+     training step fed by `CacheLoader` with no extractor forward, the cached
+     keypoints against one call on all views in bf16 and fp32; (e) phase 5's
+     trainer with `train.plot` and `pr_curves`: the PNG figures exist and
+     decode to their size, ms a figure.
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -1970,7 +1986,7 @@ def run_hpatches_eval():
         _, ad, ad_counts = run_hpatches(
             data, work, "adaptive", {**HP_LIGHTGLUE, **ADAPTIVE}, {"fused_block0": True})
         stops = [int(p["stop_layer"]) for p in
-                 load_predictions(work / "adaptive" / "predictions.npz").values()]
+                 load_predictions(work / "adaptive" / "predictions.h5").values()]
         hist = collections.Counter(stops)
         log("[hpatches adaptive] stop_layer histogram over the pairs: " + ", ".join(
             f"{layer}: {hist[layer]}" for layer in sorted(hist)) + f"; mean {np.mean(stops):.2f}")
@@ -1978,7 +1994,7 @@ def run_hpatches_eval():
         if ad_counts != [n, layers, layers, n]:
             fail(f"hpatches adaptive: expected K8 = K4 = {n}, K1 = K2 = {layers} "
                  f"(stop_layer + 1 a pair), got {ad_counts}")
-        one_ms, sweep_ms = check_ransac_devices(work / "lightglue" / "predictions.npz")
+        one_ms, sweep_ms = check_ransac_devices(work / "lightglue" / "predictions.h5")
         export_ms = lg.timings["export_s"] / n * 1e3
         eval_ms = lg.timings["eval_s"] / n * 1e3
         log(f"[hpatches] lightglue, per pair: export {export_ms:.2f} ms, eval {eval_ms:.2f} ms "
@@ -2549,7 +2565,7 @@ def run_depth_slice():
         if not (gains[0] > 0.01 and gains[1] > 0.02 and gains[2] >= 0):
             fail("synthetic_pose: the depth-fine-tuned weights miss the JAX package's bars")
         pipe = out["depth_finetuned"][1]
-        ransac_ms = check_pose_ransac(pipe, work / "depth_finetuned" / "predictions.npz")
+        ransac_ms = check_pose_ransac(pipe, work / "depth_finetuned" / "predictions.h5")
         log(f"[synthetic_pose] depth-fine-tuned, per pair: export "
             f"{pipe.timings['export_s'] / POSE_PAIRS * 1e3:.2f} ms, eval "
             f"{pipe.timings['eval_s'] / POSE_PAIRS * 1e3:.2f} ms (one RANSAC call "
@@ -2849,7 +2865,7 @@ def run_mp_cli(work, name, plain=False):
     finally:
         MP.MPPipeline.run = run
     return summaries, runs[0].timings, counts, load_predictions(work / "MP" / tag /
-                                                                "predictions.npz")
+                                                                "predictions.h5")
 
 
 def mp_test_batch():
@@ -3271,7 +3287,7 @@ def check_stage3(work):
         fail(f"stage 3: summaries {sorted(summaries)}")
     if counts != [0, 9 * n, 9 * n, n]:
         fail(f"stage 3: expected K1 = K2 = 9 and K4 = 1 launches a pair and no K8, got {counts}")
-    pred = load_predictions(work / "stage3" / "predictions.npz")
+    pred = load_predictions(work / "stage3" / "predictions.h5")
     kpts = [min(int((p["keypoint_scores0"] > 0).sum()), int((p["keypoint_scores1"] > 0).sum()))
             for p in pred.values()]
     if len(kpts) != n or min(kpts) < 1:
@@ -5383,6 +5399,386 @@ def run_sfm_phase():
     log(f"[sfm17] phase {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------- phase 18
+XPOINT = "gluefactory_tpu_torch.multipoint.models.xpoint"
+HNET = "gluefactory_tpu_torch.multipoint.models.homography_net"
+MAKE_FIGURES = "gluefactory_tpu_torch.visualization.visualize_batch.make_match_figures"
+ELF_PAIRS, ELF_B, ELF_N = 16, 8, 2048  # export: pairs, pairs a batch, keypoints
+
+
+def check_xpoint_encoders():
+    """18a: XPoint at its default configuration (dim 96, depth 4, window 8)
+    with each of swin_lite, cbam and vit, b8 at 256 x 320: forward ms, the
+    thermal view through the thermal encoder, the card against the CPU at b1
+    (fp32, TF32 off) within 1e-3. Returns the models' NHWC features of a
+    pair for 18b."""
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    img = texture(gen, 8, 256, 320).permute(0, 2, 3, 1).contiguous()
+    opt = torch.tensor([True, False] * 4, device="cuda")
+    data = {"image": img, "is_optical": opt}
+    ms, feats = {}, None
+    for bb in ("swin_lite", "cbam", "vit"):
+        conf = {"name": XPOINT, "backbone": bb, "max_num_keypoints": 512}
+        torch.manual_seed(0)
+        model = get_model(XPOINT)(conf, device="cuda").eval()
+        with torch.no_grad():
+            pred = model(data)
+            if not all(torch_finite(pred[k]) for k in ("logits", "prob", "descriptors")):
+                fail(f"18a XPoint {bb}: non-finite outputs")
+            ms[bb] = timed(lambda: model(data), 5)
+            x = img.permute(0, 3, 1, 2)
+            thermal = model.detector_head(model.encoder_thermal(x[1:2], False), False)
+            d_route = float((pred["logits"][1] - thermal[0].permute(1, 2, 0)).abs().max())
+            cpu = get_model(XPOINT)(conf, device="cpu").eval()
+            cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+            ref = cpu({"image": img[:1].cpu(), "is_optical": opt[:1].cpu()})
+            one = model({"image": img[:1], "is_optical": opt[:1]})
+            err = max(float((one[k].cpu() - ref[k]).abs().max())
+                      for k in ("logits", "prob", "dense_descriptors"))
+            if bb == "swin_lite":  # a pair of views: the images and their mirror
+                feats = [model._encode(v, opt).permute(0, 2, 3, 1) for v in (x, x.flip(-1))]
+        log(f"[xp18a] XPoint {bb} (dim 96, depth 4, window 8): b8 at 256 x 320 {ms[bb]:.2f} ms; "
+            f"the thermal view {d_route:.2e} from the thermal encoder alone; card against the "
+            f"CPU at b1 within {err:.2e} (bar 1e-3)")
+        if not d_route <= 1e-4:
+            fail(f"18a XPoint {bb}: the thermal view did not go through the thermal encoder")
+        if not err <= 1e-3:
+            fail(f"18a XPoint {bb}: {err:.3g} from the CPU (bar 1e-3)")
+        del model, cpu
+    torch.cuda.empty_cache()
+    return ms, feats
+
+
+def check_homography_heads(feats):
+    """18b: the three homography heads on (8, 32, 40, 96) backbone features
+    (ms, the card against the CPU within 1e-3), then HomographyNet at its
+    default widths on 128 x 128 grey pairs at b64: forward ms and 10 training
+    steps (the port's Trainer: batch statistics, Adam) whose loss falls."""
+    import numpy as np
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.multipoint.models.homography_net import h_to_4pt
+    from gluefactory_tpu_torch.multipoint.utils.homographies import warp_image_bilinear
+    from gluefactory_tpu_torch.train.trainer import Trainer
+
+    f0, f1 = feats
+    ms = {}
+    for head in ("pool", "srhen", "ms2cahe"):
+        conf = {"backbone": "swin_lite", "homography_head": head}
+        torch.manual_seed(0)
+        model = get_model(XPOINT)(conf, device="cuda").eval()
+        with torch.no_grad():
+            out = model.regress_homography(f0, f1)  # sizes srhen's first conv
+            ms[head] = timed(lambda: model.regress_homography(f0, f1), 10)
+            cpu = get_model(XPOINT)(conf, device="cpu").eval()
+            cpu.regress_homography(f0[:1].cpu(), f1[:1].cpu())
+            cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+            err = float((cpu.regress_homography(f0[:1].cpu(), f1[:1].cpu())
+                         - out[:1].cpu()).abs().max())
+        if out.shape != (8, 4, 2) or not torch_finite(out) or not err <= 1e-3:
+            fail(f"18b head {head}: {tuple(out.shape)}, {err:.3g} from the CPU (bar 1e-3)")
+        log(f"[xp18b] homography head {head} on (8, 32, 40, 96): {ms[head]:.3f} ms; card "
+            f"against the CPU within {err:.2e}")
+        del model, cpu
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rng = np.random.RandomState(19)
+    b = 64
+    H = np.tile(np.eye(3, dtype=np.float32), (b, 1, 1))
+    H[:, :2, :2] += rng.uniform(-0.08, 0.08, (b, 2, 2))
+    H[:, :2, 2] = rng.uniform(-8, 8, (b, 2))
+    H = torch.from_numpy(H).to("cuda")
+    im0 = texture(gen, b, 128, 128).permute(0, 2, 3, 1).contiguous()
+    batch = {"view0": {"image": im0}, "view1": {"image": warp_image_bilinear(im0, H)},
+             "H_0to1": H}
+    trainer = Trainer({"model": {"name": HNET, "is_training": True}, "train": {"lr": 1e-3}},
+                      device="cuda")
+    model = trainer.model
+    if (list(model.conf.channels), model.conf.fc_dim) != ([64, 64, 128, 128], 128):
+        fail("18b: HomographyNet is not at its default widths")
+    with torch.no_grad():
+        fwd_ms = timed(lambda: model(batch), 10)
+    trainer.train_steps([batch], steps=1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = trainer.train_steps([batch] * 10)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 10
+    losses = [h["total"] for h in history]
+    gt = h_to_4pt(H, (128, 128))
+    log(f"[xp18b] HomographyNet (64, 64, 128, 128; fc 128) b64 at 128 x 128: forward "
+        f"{fwd_ms:.2f} ms, a training step {step_ms:.2f} ms; loss {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f} over 10 steps (|gt offsets| mean {float(gt.norm(dim=-1).mean()):.2f} px)")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"18b: HomographyNet's loss did not fall: {losses}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return {**ms, "hnet_fwd": fwd_ms, "hnet_step": step_ms}
+
+
+def sp_prob_fn(model):
+    """SuperPoint-open's dense detector probability (B, H, W) of NHWC images."""
+    import torch
+    import torch.nn.functional as F
+
+    def fn(img):
+        logits, _ = model._heads(img.permute(0, 3, 1, 2).float(), False)
+        return F.pixel_shuffle(torch.softmax(logits, 1)[:, :-1], 8)[:, 0]
+    return fn
+
+
+def check_homographic_adaptation():
+    """18c: homographic adaptation, 32 warps (the JAX default) of
+    SuperPoint-open on the committed weights in fp32, b8 at 240 x 320: ms a
+    call; the first image's map on the card against the CPU within 1e-4."""
+    import numpy as np
+    import torch
+
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.multipoint.utils.homographies import homographic_adaptation
+    from gluefactory_tpu_torch.weights import load_hermetic
+
+    weights = {k[len("extractor."):]: v for k, v in load_hermetic(device="cpu").items()
+               if k.startswith("extractor.")}
+    conf = {"name": "superpoint_open", "dtype": None}
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = get_model("superpoint_open")(conf, device=dev).eval()
+        models[dev].load_state_dict({**models[dev].state_dict(),
+                                     **{k: v.to(dev) for k, v in weights.items()}})
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    img = texture(gen, 8, 240, 320).permute(0, 2, 3, 1).contiguous()
+
+    def run(dev, x):
+        with torch.no_grad():
+            return homographic_adaptation(sp_prob_fn(models[dev]), x, num=32,
+                                          rng=np.random.RandomState(7))
+
+    out = run("cuda", img)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run("cuda", img)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = run("cpu", img[:1].cpu())
+    err = float((out[:1].cpu() - ref).abs().max())
+    single = float(sp_prob_fn(models["cpu"])(img[:1].cpu()).max())
+    log(f"[xp18c] homographic adaptation, 32 warps of SuperPoint-open (committed weights, fp32), "
+        f"b8 at 240 x 320: {ms:.1f} ms a call ({ms / 33:.2f} ms a warp and detector pass); "
+        f"image 0 against the CPU within {err:.2e} (bar 1e-4); max aggregated probability "
+        f"{float(out.max()):.4f}, one pass {single:.4f}")
+    if out.shape != (8, 240, 320) or not torch_finite(out) or not err <= 1e-4:
+        fail(f"18c: {tuple(out.shape)}, {err:.3g} from the CPU (bar 1e-4)")
+    del models
+    torch.cuda.empty_cache()
+    return ms
+
+
+def write_homographies_tree(root, n):
+    """n textured 480 x 640 grey PNGs (the port's encoder) under root/images/png."""
+    import torch
+
+    from gluefactory_tpu_torch.datasets.image_codecs import encode_png
+
+    image_dir = root / "images" / "png"
+    image_dir.mkdir(parents=True)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    imgs = (texture(gen, n, 480, 640)[:, 0] * 255).round().to(torch.uint8).cpu().numpy()
+    for i, im in enumerate(imgs):
+        (image_dir / f"{i:03d}.png").write_bytes(encode_png(im))
+    return {"data_dir": str(root / "images"), "image_dir": "png", "glob": ["*.png"],
+            "train_size": 0, "val_size": ELF_PAIRS, "val_batch_size": ELF_B,
+            "batch_size": None}
+
+
+def keypoint_share(a, b):
+    """Mean share of the rows of a[i] found in b[i]."""
+    shares = []
+    for x, y in zip(a, b):
+        ys = {tuple(p) for p in y.tolist()}
+        shares.append(sum(tuple(p) in ys for p in x.tolist()) / len(x))
+    return sum(shares) / len(shares)
+
+
+def check_export(work):
+    """18d: `export_local_features --method sp --n_kpts 2048` over a
+    homographies tree of ELF_PAIRS val pairs (480 x 640): views/s with
+    `fused_block0` (K8 counted), the file read by `CacheLoader` and a
+    LightGlue training step fed by it with no extractor forward; then the
+    cached keypoints against one call on all views, in bf16 and in fp32."""
+    import numpy as np
+    import torch
+
+    from gluefactory_tpu_torch.datasets import get_dataset
+    from gluefactory_tpu_torch.models.cache_loader import CacheLoader
+    from gluefactory_tpu_torch.ops import block0_conv as b0
+    from gluefactory_tpu_torch.scripts import export_local_features as elf
+    from gluefactory_tpu_torch.scripts.export_megadepth import make_extractor
+    from gluefactory_tpu_torch.train.trainer import Trainer
+    from gluefactory_tpu_torch.utils.config import load_conf, merge
+    from gluefactory_tpu_torch.utils.export_predictions import load_predictions
+    from gluefactory_tpu_torch.utils.tensor import batch_to_device
+    from gluefactory_tpu_torch.weights import HERMETIC, load_hermetic
+
+    data = {"name": "homographies",
+            **merge(load_conf(TRAIN_CONF)["data"], write_homographies_tree(work, 2 * ELF_PAIRS))}
+    data.pop("synthetic")
+    out = {}
+    for tag, model_conf in (("fused_block0 bf16", {"fused_block0": True}),
+                            ("bf16", {}), ("fp32", {"dtype": None})):
+        dotlist = [f"data.{k}={json.dumps(v)}" for k, v in data.items()]
+        dotlist += [f"model.{k}={json.dumps(v)}" for k, v in model_conf.items()]
+        path = work / f"{tag.replace(' ', '_')}.h5"
+        b0.block0_fused.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        elf.main(["--dataset", "homographies", "--method", "sp", "--split", "val", "--n_kpts",
+                  str(ELF_N), "--output", str(path), "--checkpoint", str(HERMETIC),
+                  "--device", "cuda", *dotlist])
+        torch.cuda.synchronize()
+        out[tag] = (path, time.perf_counter() - t0, b0.block0_fused.launches)
+    path, secs, k8 = out["fused_block0 bf16"]
+    preds = load_predictions(path)
+    if len(preds) != ELF_PAIRS or k8 != 2 * ELF_PAIRS // ELF_B:
+        fail(f"18d: {len(preds)} groups, K8 launched {k8} times")
+    log(f"[xp18d] export_local_features --method sp --n_kpts {ELF_N} (committed weights): "
+        f"{2 * ELF_PAIRS} views of 480 x 640 in {secs:.2f} s ({2 * ELF_PAIRS / secs:.2f} views/s, "
+        f"the loader's warps included) with fused_block0 ({k8} K8 launches); bf16 without it "
+        f"{out['bf16'][1]:.2f} s, fp32 {out['fp32'][1]:.2f} s")
+
+    # a LightGlue training step on cached features: no extractor forward
+    loader = CacheLoader({"path": str(path), "add_data_path": False})
+    ds = get_dataset("homographies")(data, device="cuda")
+    batch = next(iter(ds.get_data_loader("val", shuffle=False)))
+    cache = [loader({"name": n}) for n in batch["name"]]
+    for v in "01":
+        batch[f"view{v}"]["cache"] = {
+            k[:-1]: np.stack([c[k] for c in cache]) for k in cache[0] if k.endswith(v)}
+    conf = merge(load_conf(TRAIN_CONF), {"model": {"allow_no_extract": True}})
+    trainer = Trainer(conf, device="cuda")
+    trainer.load_weights(load_hermetic(device="cuda"))
+    calls = []
+    hook = trainer.model.extractor.register_forward_pre_hook(lambda m, a: calls.append(1))
+    reset_step_counts()
+    history = trainer.train_steps([batch_to_device(batch, "cuda")], steps=1)
+    counts = step_counts()
+    hook.remove()
+    if calls or not math.isfinite(history[0]["total"]) or history[0]["skipped_nonfinite"]:
+        fail(f"18d: {len(calls)} extractor forwards, losses {history[0]}")
+    if min(counts["K5"], counts["K6b"], counts["K7b self"]) < 1:
+        fail(f"18d: the cached step launched {counts}")
+    log(f"[xp18d] CacheLoader -> a training step of {ELF_B} pairs at {ELF_N} keypoints: no "
+        f"extractor forward, total {history[0]['total']:.4f}, launches {counts}")
+    del trainer
+
+    # PERF.md's open question: do the cached (per batch) keypoints equal one call's?
+    imgs = np.concatenate([np.asarray(b[f"view{v}"]["image"]) for b in
+                           ds.get_data_loader("val", shuffle=False) for v in "01"])
+    shares = {}
+    for tag, dtype in (("bf16", "bfloat16"), ("fp32", None)):
+        model = make_extractor("sp", ELF_N, HERMETIC, "cuda", {"dtype": dtype})
+        with torch.no_grad():
+            kp = model({"image": torch.from_numpy(imgs).to("cuda")})["keypoints"].cpu().numpy()
+        cached = load_predictions(out[tag][0])
+        names = [n for b in ds.get_data_loader("val", shuffle=False) for n in b["name"]]
+        per_batch = np.stack([cached[n][f"keypoints{v}"] for i in range(0, len(names), ELF_B)
+                              for v in "01" for n in names[i:i + ELF_B]]).astype(np.float32)
+        shares[tag] = keypoint_share(per_batch, kp)
+        del model
+    log(f"[xp18d] keypoints of the export (batches of {ELF_B} views) found in one call on all "
+        f"{len(imgs)} views: bf16 {shares['bf16']:.4f}, fp32 {shares['fp32']:.4f} of {ELF_N}")
+    torch.cuda.empty_cache()
+    return 2 * ELF_PAIRS / secs, shares
+
+
+def check_figures(work):
+    """18e: phase 5's trainer (the configuration at full width, TRAIN_B pairs
+    a step, the committed weights) with `train.plot: [2, make_match_figures]`
+    and `pr_curves` for 2 steps and a validation of 8 pairs: the three PNGs
+    exist and decode to their size; ms a figure; the launches."""
+    import torch
+
+    from gluefactory_tpu_torch.datasets.image_codecs import decode_png
+    from gluefactory_tpu_torch.train.trainer import Trainer
+    from gluefactory_tpu_torch.utils import experiments as exps
+    from gluefactory_tpu_torch.utils.config import load_conf, merge
+    from gluefactory_tpu_torch.utils.summary import ExperimentWriter
+    from gluefactory_tpu_torch.utils.tensor import batch_to_device
+    from gluefactory_tpu_torch.visualization.visualize_batch import make_match_figures
+    from gluefactory_tpu_torch.weights import load_hermetic
+
+    conf = merge(load_conf(TRAIN_CONF), {
+        "data": {"batch_size": None, "train_batch_size": TRAIN_B, "val_batch_size": 8,
+                 "train_size": 2 * TRAIN_B, "val_size": 8},
+        "train": {"epochs": 1, "log_every_iter": 1, "eval_every_iter": -1, "save_every_iter": -1,
+                  "pr_curves": True, "plot": [2, MAKE_FIGURES]}})
+    saved, exps.TRAINING_PATH = exps.TRAINING_PATH, work
+    try:
+        trainer = Trainer(conf, "figures", work / "figures", device="cuda")
+        trainer.build()
+        trainer.load_weights(load_hermetic(device="cuda"))
+        reset_entry_counts()
+        trainer.train()
+        counts = entry_counts()
+    finally:
+        exps.TRAINING_PATH = saved
+    figs = sorted((work / "figures" / "figures").glob("*.png"))
+    names = [p.name for p in figs]
+    want = [f"matching_0_{2}.png", f"matching_1_{2}.png", f"val_match_pr_{2}.png"]
+    if names != want:
+        fail(f"18e: figures {names}, expected {want}")
+    shapes = [decode_png(p.read_bytes(), mode="color").shape for p in figs]
+    if shapes != [(480, 2 * 640 + 8, 3)] * 2 + [(400, 400, 3)]:
+        fail(f"18e: figure sizes {shapes}")
+    if min(counts["K5"], counts["K6b"], counts["K7b self"], counts["K7b cross"]) < 1:
+        fail(f"18e: the run launched {counts}")
+    batch = batch_to_device(next(iter(trainer.dataset.get_data_loader("val"))), "cuda")
+    with torch.no_grad():
+        pred = trainer.model(batch)
+    writer = ExperimentWriter(work / "timing")
+    t0 = time.perf_counter()
+    for i in range(3):
+        for name, fig in make_match_figures(pred, batch, n_pairs=2).items():
+            writer.figure(i, name, fig)
+    fig_ms = (time.perf_counter() - t0) * 1e3 / 6
+    writer.close()
+    n_matches = int((pred["matches0"][:2] > -1).sum())
+    log(f"[xp18e] training with train.plot [2, make_match_figures] and pr_curves: {names} "
+        f"({shapes[0]} and {shapes[2]}), launches {counts}; {fig_ms:.1f} ms a match figure "
+        f"(rasterised and PNG-encoded, {n_matches / 2:.0f} lines a figure)")
+    del trainer
+    torch.cuda.empty_cache()
+    return fig_ms
+
+
+def run_figures_phase():
+    """Phase 18: the multipoint remainder, the exports and the figures."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = ROOT / "outputs" / "chip_smoke_phase18"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        xp_ms, feats = check_xpoint_encoders()
+        heads = check_homography_heads(feats)
+        ha_ms = check_homographic_adaptation()
+        vps, shares = check_export(work)
+        fig_ms = check_figures(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[xp18] phase {time.perf_counter() - t_phase:.1f} s; XPoint b8 ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in xp_ms.items())
+        + f"; heads ms pool {heads['pool']:.3f}, srhen {heads['srhen']:.3f}, ms2cahe "
+        f"{heads['ms2cahe']:.3f}; HomographyNet step {heads['hnet_step']:.2f} ms; adaptation "
+        f"{ha_ms:.1f} ms; export {vps:.2f} views/s; {fig_ms:.1f} ms a figure")
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     global TRAIN_B
@@ -5699,6 +6095,10 @@ def main() -> int:
     log(f"[time] phase 17 starts at {time.perf_counter() - t_start:.1f} s")
     # 17. the SfM/SLAM layer
     run_sfm_phase()
+    torch.cuda.empty_cache()
+    log(f"[time] phase 18 starts at {time.perf_counter() - t_start:.1f} s")
+    # 18. the multipoint remainder, the exports and the figures
+    run_figures_phase()
     torch.cuda.empty_cache()
     mp_att = {k["key"]: k["ms"] * per_step[k["key"]] for k in kernels
               if k.get("key") in ("K5 bf16", "K6b bf16", "K7b self bf16", "K7b cross bf16")}

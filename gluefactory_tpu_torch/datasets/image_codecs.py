@@ -21,6 +21,9 @@ arithmetic-coded JPEG, 12-bit samples, RGB-coded and CMYK / YCCK JPEG
 (colour type 3) PNG, PNG below 8 bits a sample, and an unknown critical PNG
 chunk.
 
+`encode_png` writes 8-bit grey or RGB PNG (filter 0, `zlib`), the figures'
+format.
+
 Outputs are uint8 arrays: (H, W, 3) RGB or (H, W) grey, as cv2's
 IMREAD_COLOR (flipped to RGB) and IMREAD_GRAYSCALE give them; `decode_png`
 also keeps 16 bits of a grey result, as IMREAD_ANYDEPTH does. cv2's
@@ -428,5 +431,25 @@ def decode_png(data: bytes, mode: str = "color", path="PNG") -> np.ndarray:
     return apply_orientation(np.ascontiguousarray(out), orientation)
 
 
-__all__ = ["decode_jpeg", "decode_png", "jpeg_size", "png_size", "exif_orientation",
-           "apply_orientation", "JPEG_MAGIC", "PNG_MAGIC"]
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """An 8-bit PNG of a (H, W) grey or (H, W, 3) RGB uint8 array: one IDAT
+    of the rows with filter 0, deflated by `zlib` at `level`."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_png takes (H, W) or (H, W, 3) uint8, got {img.dtype} "
+                         f"{img.shape}")
+    h, w = img.shape[:2]
+    rows = np.ascontiguousarray(img).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if img.ndim == 3 else 0, 0, 0, 0)
+    return (PNG_MAGIC + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(raw, level)) + _png_chunk(b"IEND", b""))
+
+
+__all__ = ["decode_jpeg", "decode_png", "encode_png", "jpeg_size", "png_size",
+           "exif_orientation", "apply_orientation", "JPEG_MAGIC", "PNG_MAGIC"]

@@ -11,8 +11,8 @@ true and false positives into one precision-recall curve and its AP.
 
 Reads GLUEFACTORY_TPU_TORCH_DATA/ETH3D_undistorted (nothing is downloaded)
 and writes to GLUEFACTORY_TPU_TORCH_EVAL/eth3d/<tag>; prints the summaries
-as JSON. The predictions are the port's `.npz` (the JAX package's HDF5
-holds the same content). The synthetic variant's default extractor is the
+as JSON. The predictions are `predictions.h5`, in the JAX package's
+layout. The synthetic variant's default extractor is the
 JAX package's `sift`, the host OpenCV SIFT, which is not portable: it
 raises; pass `model.extractor.name=sift_tpu`.
 """
@@ -83,7 +83,7 @@ class ETH3DPipeline(EvalPipeline):
         return ()  # the evaluation reads the predictions only
 
     def get_predictions(self, experiment_dir, model=None, overwrite=False):
-        pred_file = Path(experiment_dir) / "predictions.npz"
+        pred_file = Path(experiment_dir) / "predictions.h5"
         if pred_file.exists() and not overwrite:
             return pred_file
         from .export_helper import make_export_apply_fn

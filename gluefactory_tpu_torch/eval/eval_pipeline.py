@@ -1,12 +1,14 @@
 """Two-phase evaluation: export the predictions, then evaluate from the file
 (counterpart of gluefactory_tpu/eval/eval_pipeline.py).
 
-Predictions go to `predictions.npz`, per-pair results to `results.npz`,
-summaries to `summaries.json` and the configuration to `conf.json`. A
-configuration that differs from the cached run's needs `overwrite` (model or
-data) or `overwrite_eval` (eval). Both phases run on the pipeline's device,
-the card unless the caller asks for the CPU; `timings` keeps each phase's
-seconds.
+Predictions go to `predictions.h5`, per-pair results to `results.h5` (HDF5
+in the JAX package's layout, through the port's `utils/hdf5.py`: one
+dataset a result, strings as fixed-length bytes), summaries to
+`summaries.json` and the configuration to `conf.json`, so that an
+experiment directory of either package reads in the other. A configuration
+that differs from the cached run's needs `overwrite` (model or data) or
+`overwrite_eval` (eval). Both phases run on the pipeline's device, the card
+unless the caller asks for the CPU; `timings` keeps each phase's seconds.
 """
 
 from __future__ import annotations
@@ -19,34 +21,49 @@ from typing import Any
 import numpy as np
 
 from ..models.base_model import resolve_device
+from ..utils import hdf5
 from ..utils.config import Config, merge, to_dict
 
 
 def load_eval(dir_: Path):
-    """(summaries, results) of a finished evaluation."""
+    """(summaries, results) of a finished evaluation; string results come
+    back as str (the file holds ASCII bytes, which the JAX `load_eval`
+    returns as they are)."""
     dir_ = Path(dir_)
-    with np.load(str(dir_ / "results.npz")) as f:
-        results = {k: f[k] for k in f.files}
+    with hdf5.File(dir_ / "results.h5", "r") as f:
+        results = {k: np.asarray(f[k]) for k in f.keys()}
+    results = {k: np.char.decode(v, "ascii") if v.dtype.kind == "S" else v
+               for k, v in results.items()}
     with open(dir_ / "summaries.json") as f:
         summaries = json.load(f)
     return summaries, results
 
 
 def save_eval(dir_: Path, summaries: dict, figures: dict, results: dict):
+    """Write `results.h5`, `summaries.json` and each figure as `<name>.png`
+    (an RGB array, `visualization.viz2d.save_plot`)."""
     dir_ = Path(dir_)
     dir_.mkdir(parents=True, exist_ok=True)
-    np.savez(dir_ / "results.npz", **{k: np.asarray(v) for k, v in results.items()})
+    with hdf5.File(dir_ / "results.h5", "w") as f:
+        for k, v in results.items():
+            arr = np.array(v)
+            if not np.issubdtype(arr.dtype, np.number):
+                arr = arr.astype("S")
+            f.create_dataset(k, data=arr)
     s = {k: float(v) if np.isscalar(v) and not isinstance(v, str) else v
          for k, v in summaries.items()}
     with open(dir_ / "summaries.json", "w") as f:
         json.dump(s, f, indent=4, default=float)
-    for fig_name, fig in figures.items():
-        fig.savefig(dir_ / f"{fig_name}.png")
+    if figures:
+        from ..visualization.viz2d import save_plot
+
+        for fig_name, fig in figures.items():
+            save_plot(dir_ / f"{fig_name}.png", fig)
 
 
 def exists_eval(dir_: Path):
     dir_ = Path(dir_)
-    return (dir_ / "results.npz").exists() and (dir_ / "summaries.json").exists()
+    return (dir_ / "results.h5").exists() and (dir_ / "summaries.json").exists()
 
 
 class EvalPipeline:

@@ -1,7 +1,7 @@
 """Shared core of the homography benchmarks (counterpart of
 gluefactory_tpu/eval/homography_benchmark.py).
 
-Export: the two-view pipeline on the device, one `.npz` of the export keys
+Export: the two-view pipeline on the device, `predictions.h5` of the export keys
 (and LightGlue's `stop_layer` where the matcher gives it). Eval, per pair,
 with its ground truth read from the image headers (no pixels): match
 precision, the score-weighted DLT, and RANSAC at `ransac_th` or, with -1,
@@ -63,7 +63,7 @@ class HomographyBenchmarkPipeline(EvalPipeline):
         return (collate([split.metadata(i)]) for i in range(len(split)))
 
     def get_predictions(self, experiment_dir, model=None, overwrite=False):
-        pred_file = Path(experiment_dir) / "predictions.npz"
+        pred_file = Path(experiment_dir) / "predictions.h5"
         if pred_file.exists() and not overwrite:
             return pred_file
         from .export_helper import make_export_apply_fn

@@ -1,7 +1,8 @@
 """Shared core of the relative-pose benchmarks (counterpart of
 gluefactory_tpu/eval/relpose_benchmark.py, the MegaDepth-1500 protocol).
 
-Export: the two-view pipeline on the device, one `.npz` of the export keys.
+Export: the two-view pipeline on the device, `predictions.h5` of the export
+keys.
 Eval, per pair, with its cameras and ground-truth pose from the data
 loader: the epipolar precision of the matches, and RANSAC at `ransac_th`
 pixels or, with -1, at each of 0.5 ... 3.0 (one batched estimator call for
@@ -48,7 +49,7 @@ class RelPoseBenchmarkPipeline(EvalPipeline):
         return self.make_dataset(data_conf or self.conf.data).get_data_loader("test")
 
     def get_predictions(self, experiment_dir, model=None, overwrite=False):
-        pred_file = Path(experiment_dir) / "predictions.npz"
+        pred_file = Path(experiment_dir) / "predictions.h5"
         if pred_file.exists() and not overwrite:
             return pred_file
         from .export_helper import make_export_apply_fn

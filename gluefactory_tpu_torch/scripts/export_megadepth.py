@@ -44,12 +44,14 @@ METHOD_CONFS = {
 KEYS = ("keypoints", "keypoint_scores", "descriptors", "keypoint_mask", "scales", "oris")
 
 
-def make_extractor(method: str, n_kpts: int, checkpoint=None, device="cuda"):
+def make_extractor(method: str, n_kpts: int, checkpoint=None, device="cuda", conf=None):
+    """The extractor of `method` (its configuration merged with `conf`), in
+    eval mode."""
     if method == "sift":
         raise NotImplementedError(
             "--method sift runs OpenCV's SIFT on the host, which is outside the port (ROADMAP "
             "Queue 1, not portable); use --method sp")
-    conf = {**METHOD_CONFS[method], "max_num_keypoints": n_kpts}
+    conf = merge(METHOD_CONFS[method], {"max_num_keypoints": n_kpts}, conf or {})
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)  # the same seeded weights on every call
         model = get_model(conf["name"])(conf, device=device)

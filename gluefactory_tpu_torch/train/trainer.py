@@ -19,9 +19,12 @@ resumes from the experiment's last checkpoint; `train()` runs the epochs:
     the unfused layers with the attention forward kernels, no backward),
     streaming means, `median_metrics`, and with `pr_curves` the average
     precision of the predicted matches (`val/match_AP`, IGNORE labels
-    masked; the JAX package also draws the PR figure, which needs
-    matplotlib and is left out here); a new best `best_key` value writes
-    `checkpoint_best`. A batch-mode BatchNorm normalises validation batches
+    masked) and the figure of its recall / precision curve (`val/match_pr`);
+    with `plot: [n_pairs, "module.function"]` the function's figures of the
+    first validation batch (`visualization.visualize_batch.make_match_figures`:
+    `matching_i`); figures go to `<output_dir>/figures/<name>_<step>.png`, and
+    a figure that fails is logged and training goes on, as in the JAX
+    trainer; a new best `best_key` value writes `checkpoint_best`. A batch-mode BatchNorm normalises validation batches
     with their own statistics, and its running statistics are put back
     afterwards, as the JAX trainer discards that update;
   - every `save_every_iter` steps and at the end of an epoch a checkpoint
@@ -37,8 +40,7 @@ batches without the epoch loop. The model is any registered model with a
 `loss`: a two-view pipeline, or a bare extractor (SuperPoint-open on
 SyntheticShapes, `configs/superpoint-open_synthetic_pretrain.json`), whose
 checkpoint a later experiment grafts into its `extractor` through
-`load_experiment` and `load_experiment_prefix`. `train.plot` (match figures) raises: the
-visualisation module is not ported (ROADMAP Queue 1 item 6). The step has no
+`load_experiment` and `load_experiment_prefix`. The step has no
 randomness (no dropout, no augmentation on the device); model
 initialisation draws from the model's own seeded `torch.Generator`.
 
@@ -56,6 +58,7 @@ summaries, the checkpoints and runs the benchmarks.
 
 from __future__ import annotations
 
+import importlib
 import logging
 import shutil
 import signal
@@ -121,6 +124,16 @@ default_train_conf = {
 }
 
 
+def pr_curve(labels: np.ndarray, scores: np.ndarray):
+    """(recall, precision, average precision) of binary labels ranked by
+    descending score, as the JAX trainer computes `match_AP` and its curve."""
+    order = np.argsort(-scores)
+    tp = np.cumsum(labels[order])
+    precision = tp / (np.arange(len(tp)) + 1)
+    recall = tp / max(labels.sum(), 1)
+    return recall, precision, float(np.sum(precision * labels[order]) / max(labels.sum(), 1))
+
+
 def graft_state(model: torch.nn.Module, loaded: Mapping, prefix: str | None = None):
     """Copy the tensors of `loaded` whose name (under `prefix`, a module
     path like "extractor") and shape match into the model; returns
@@ -139,10 +152,6 @@ class Trainer:
     def __init__(self, conf: Mapping, experiment: str | None = None,
                  output_dir: str | Path | None = None, device: Any = "cuda", mark=None):
         self.conf = Config(merge({"train": default_train_conf}, conf))
-        if self.conf.train.get("plot"):
-            raise NotImplementedError(
-                "train.plot needs the match figures of the visualisation module, which is not "
-                "ported yet (ROADMAP Queue 1 item 6)")
         self.experiment = experiment
         self.output_dir = Path(output_dir) if output_dir else None
         self.rank, self.world = distributed.rank(), distributed.world_size()
@@ -230,7 +239,7 @@ class Trainer:
         buffers = list(self.model.buffers())
         saved = [b.clone() for b in buffers]
         try:
-            self._evaluate_batches(epoch, aggs, medians, pr)
+            self._evaluate_batches(epoch, it, aggs, medians, pr)
         finally:
             restore_buffers(buffers, saved)
         results = {k: m.compute() for k, m in aggs.items()}
@@ -238,26 +247,40 @@ class Trainer:
         if pr is not None:
             labels, scores = pr.compute()
             if len(labels) > 0:
-                order = np.argsort(-scores)
-                tp = np.cumsum(labels[order])
-                precision = tp / (np.arange(len(tp)) + 1)
-                results["match_AP"] = float(np.sum(precision * labels[order])
-                                            / max(labels.sum(), 1))
+                recall, precision, results["match_AP"] = pr_curve(labels, scores)
+                if self.writer is not None:
+                    from ..visualization.viz2d import plot_curve
+
+                    self.writer.figure(it, "val/match_pr", plot_curve(recall, precision))
         logger.info("[Validation epoch %d iter %d] %s", epoch, it,
                     {k: round(float(v), 4) for k, v in results.items() if is_num(v)})
         if self.writer is not None:
             self.writer.scalars(it, results, prefix="val/")
         return results
 
-    def _evaluate_batches(self, epoch: int, aggs, medians, pr) -> None:
+    def _plot_batch(self, pred, data, it: int) -> None:
+        """The `train.plot` hook on the first validation batch."""
+        n_pairs, fn_path = self.conf.train.plot
+        mod_path, fn_name = str(fn_path).rsplit(".", 1)
+        try:
+            fn = getattr(importlib.import_module(mod_path), fn_name)
+            for name, fig in fn(pred, data, n_pairs=int(n_pairs)).items():
+                self.writer.figure(it, name, fig)
+        except Exception as e:  # noqa: BLE001 - a figure must not stop training
+            logger.warning("plot hook failed: %s", e)
+
+    def _evaluate_batches(self, epoch: int, it: int, aggs, medians, pr) -> None:
         # across processes each rank takes its slice of a val batch, and the
         # pairs are gathered; a batch that the ranks do not divide is
         # evaluated whole on every rank (the JAX package replicates it)
         sharded = self.world > 1 and self.dataset.batch_size("val") % self.world == 0
         shard = (self.rank, self.world) if sharded else (0, 1)
-        for batch in self.dataset.get_data_loader("val", epoch=epoch, shard=shard):
+        for count, batch in enumerate(self.dataset.get_data_loader("val", epoch=epoch,
+                                                                   shard=shard)):
             data = batch_to_device(batch, self.device)
             pred = self.model(data)
+            if count == 0 and self.conf.train.plot and self.writer is not None:
+                self._plot_batch(pred, data, it)
             losses, metrics = self.model.loss(pred, data)
             values = {k: v.detach().float().cpu().numpy().reshape(-1)
                       for k, v in {**losses, **metrics}.items()}

@@ -11,8 +11,9 @@ superblock v0 / v1 with 2-, 4- or 8-byte offsets and lengths; object header
 v1 with its continuation messages; symbol-table groups (a v1 B-tree of type 0
 over `SNOD` nodes, names in the local heap); dataspace messages v1 / v2
 (scalar, simple, null); fixed-point and IEEE float types of 1 to 8 bytes in
-either byte order, and h5py's bool (an enum over int8, FALSE = 0, TRUE = 1)
-read back as `bool`; data layout v3, compact, contiguous or chunked (a v1
+either byte order, h5py's bool (an enum over int8, FALSE = 0, TRUE = 1)
+read back as `bool`, and fixed-length ASCII strings (numpy bytes, `S`, as
+`arr.astype("S")` writes them); data layout v3, compact, contiguous or chunked (a v1
 B-tree of type 1; edge chunks cropped, unallocated chunks the fill value);
 filters deflate (1), shuffle (2) and fletcher32 (3), each chunk's filter mask
 honoured. A dataset's bytes are read when it is asked for, from a read-only
@@ -20,14 +21,15 @@ honoured. A dataset's bytes are read when it is asked for, from a read-only
 `ValueError` naming what was found: superblock v2 / v3 (`libver="latest"`),
 object header v2, link-message groups, layouts other than v3 (and the
 virtual class), filters such as lzf (32000), szip, nbit or scaleoffset;
-string, compound, variable-length, array, reference, opaque, bitfield and
-time types; shared or committed datatypes; external storage.
+UTF-8 strings, compound, variable-length, array, reference, opaque,
+bitfield and time types; shared or committed datatypes; external storage.
 
 Writing produces what h5py's default writes: superblock v0 with the default
 K (group leaf 4, group internal 16), object header v1, symbol-table groups
 whose members are sorted by name (HDF5 finds a member by a binary search over
 the B-tree's keys) under a B-tree as deep as the group needs, and contiguous,
-unfiltered data (layout v3). A dataset's bytes go to the file when it is
+unfiltered data (layout v3) of bool, integers, IEEE floats and fixed-length
+byte strings (null-padded ASCII, h5py's type for numpy `S`). A dataset's bytes go to the file when it is
 created; the metadata is written on `close()`.
 """
 
@@ -227,6 +229,10 @@ def _datatype(reader: _Reader, data, flags: int = 0) -> np.dtype:
                 or layout != _IEEE[size] or data[14] != 0:
             reader.fail(f"a non-IEEE {precision}-bit floating-point type")
         return np.dtype(f"{order}f{size}")
+    if cls == 3:  # a fixed-length string, read as bytes as h5py reads it
+        if (bits >> 4) & 0x0F:
+            reader.fail("a UTF-8 fixed-length string datatype")
+        return np.dtype(f"S{size}")
     if cls == 8:
         base = _datatype(reader, data[8:])
         n = bits & 0xFFFF
@@ -505,13 +511,15 @@ def _datatype_message(dtype: np.dtype) -> bytes:
     if dtype.kind in "iu" and size in (1, 2, 4, 8):
         bits = order | (0x08 if dtype.kind == "i" else 0)
         return struct.pack("<BHBIHH", 0x10, bits, 0, size, 0, 8 * size)
+    if dtype.kind == "S" and size:  # h5py's numpy bytes: null-padded ASCII
+        return struct.pack("<BHBI", 0x13, 0x01, 0, size)
     if dtype.kind == "f" and size in _IEEE:
         exp_loc, exp_size, mant_size, bias = _IEEE[size]
         bits = order | 0x20 | ((8 * size - 1) << 8)  # implied MSB normalisation, sign bit
         return struct.pack("<BHBIHHBBBBI", 0x11, bits & 0xFFFF, bits >> 16, size, 0, 8 * size,
                            exp_loc, exp_size, 0, mant_size, bias)
-    raise ValueError(f"the port's HDF5 writer does not write {dtype} data (bool, integers "
-                     "and IEEE floats of 1 to 8 bytes)")
+    raise ValueError(f"the port's HDF5 writer does not write {dtype} data (bool, integers, "
+                     "IEEE floats of 1 to 8 bytes and fixed-length byte strings)")
 
 
 def _dataspace_message(shape: tuple) -> bytes:

@@ -3,11 +3,11 @@ gluefactory_tpu/utils/summary.py).
 
 Appends scalars and histograms to `<dir>/events.jsonl`, one JSON object a
 line: `{"step", "ts", <name>: value, ...}` and, for a histogram,
-`{<name>__hist: {"counts", "edges", "mean", "max"}}`. The JAX writer also
-mirrors to TensorBoard and saves matplotlib figures; the card's machine has
-neither, so there are no figures here: `figure` raises (ROADMAP Queue 1
-item 6, `visualization/`). With `train.pr_curves` the trainer writes
-`val/match_AP` but not the JAX package's PR figure.
+`{<name>__hist: {"counts", "edges", "mean", "max"}}`. `figure` writes a
+`visualization.viz2d.Figure` (or an image array) as
+`<dir>/figures/<name>_<step>.png` ("/" in the name as "_"), with the port's
+own PNG encoder. The JAX writer also mirrors to TensorBoard, which the
+port does not use.
 """
 
 from __future__ import annotations
@@ -51,10 +51,12 @@ class ExperimentWriter:
             "counts": counts.tolist(), "edges": np.round(edges, 6).tolist(),
             "mean": float(vals.mean()), "max": float(vals.max())}})
 
-    def figure(self, step: int, name: str, fig):
-        raise NotImplementedError(
-            "figures need matplotlib, which the port does not use; the visualisation module "
-            "is not ported yet (ROADMAP Queue 1 item 6)")
+    def figure(self, step: int, name: str, fig) -> Path:
+        from ..visualization.viz2d import save_plot
+
+        fig_dir = self.dir / "figures"
+        fig_dir.mkdir(exist_ok=True)
+        return save_plot(fig_dir / f"{name.replace('/', '_')}_{step}.png", fig)
 
     def close(self) -> None:
         self._events.close()

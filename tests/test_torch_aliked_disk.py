@@ -21,6 +21,7 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu.models.extractors import aliked as ja
 from gluefactory_tpu_torch.models import get_model
@@ -76,16 +77,16 @@ def pair(request):
     arch = (name, conf.get("model_name"))
     if arch in _INITS:
         variables = _INITS[arch]
-        ref = jax.jit(jm.apply)(variables, data)
+        ref = jit_o0(jm.apply)(variables, data)
     else:
-        variables, ref = jax.jit(init_apply)(jax.random.PRNGKey(1), data)
+        variables, ref = jit_o0(init_apply)(jax.random.PRNGKey(1), data)
         variables = _INITS[arch] = jax.tree.map(np.asarray, variables)
     tm = get_model(name)(conf, device="cpu")
     tm.load_state_dict(params_from_jax(variables), strict=True)
     out = {k: v.numpy() for k, v in tm({"image": _t(img)}).items()}
     extra = {}
     if name == "disk_official":  # the dense maps
-        h, dense = jax.jit(lambda v, x: jm.apply(v, x, method="dense_forward"))(
+        h, dense = jit_o0(lambda v, x: jm.apply(v, x, method="dense_forward"))(
             variables, jnp.asarray(np.pad(img, ((0, 0), (0, 10), (0, 6), (0, 0)))))
         th, tdense = tm.dense_forward(
             torch.nn.functional.pad(_t(img).permute(0, 3, 1, 2), (0, 6, 0, 10)))
@@ -153,7 +154,7 @@ def test_deform_conv2d_matches_jax():
     off = (rng.randn(2, 9, 11, 18) * 2).astype(np.float32)  # taps past every border
     kernel = rng.randn(3, 3, 5, 7).astype(np.float32)
     bias = rng.randn(7).astype(np.float32)
-    ref = np.asarray(jax.jit(ja.deform_conv2d)(x, off, kernel, bias))
+    ref = np.asarray(jit_o0(ja.deform_conv2d)(x, off, kernel, bias))
     out = ta.deform_conv2d(_t(x).permute(0, 3, 1, 2), _t(off).permute(0, 3, 1, 2),
                            _t(kernel).permute(3, 2, 0, 1), _t(bias))
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, atol=1e-5)
@@ -183,14 +184,14 @@ def disk_loss_pair():
             "valid_mask2": valid, "H_0to1": H}
     jm = jax_model("disk").from_conf(DISK_TRAIN)
     jdata = {k: jnp.asarray(v) for k, v in data.items()}
-    variables = jax.jit(jm.init)(jax.random.PRNGKey(2), jdata)
+    variables = jit_o0(jm.init)(jax.random.PRNGKey(2), jdata)
 
     def loss(params, d):
         pred = jm.apply({"params": params}, d)
         losses, _ = jm.apply({"params": params}, pred, d, method="loss")
         return losses["total"].mean(), losses
 
-    (_, ref_losses), ref_grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+    (_, ref_losses), ref_grads = jit_o0(jax.value_and_grad(loss, has_aux=True))(
         variables["params"], jdata)
     tm = get_model("disk")(DISK_TRAIN, device="cpu")
     tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, variables)), strict=True)

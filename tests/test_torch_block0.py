@@ -17,6 +17,7 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu.models.matchers.lightglue_pretrained import load_npz_params
 from gluefactory_tpu.ops.pallas_conv import block0_fused as jax_block0
@@ -115,7 +116,7 @@ def test_extractor_with_fused_block0_matches_jax(fused):
     variables = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), {
         "params": tree["params"]["extractor"], "batch_stats": tree["batch_stats"]["extractor"]})
     jm = jax_model("superpoint_open").from_conf({**conf, "fused_block0": True})
-    ref = jax.tree.map(np.asarray, jax.jit(jm.apply)(variables, {"image": jnp.asarray(img)}))
+    ref = jax.tree.map(np.asarray, jit_o0(jm.apply)(variables, {"image": jnp.asarray(img)}))
 
     tm = get_model("superpoint_open")(conf, device="cpu")
     tm.load_state_dict(params_from_jax(variables), strict=True)

@@ -8,8 +8,8 @@ Bars: the COLMAP readers and the pair selection equal; each view's image
 within the area-resize bar (mean < 1e-7, max < 1e-6), its camera and the
 pair's poses within 1e-6, its nearest-resized depth equal; `gt_matches0`
 of the port's `depth_matcher` equal to JAX's on the same keypoints, depths
-and cameras; `eval_dataset_pr` on the same predictions (the port's `.npz`,
-JAX's HDF5) JAX's AP within 1e-7 and its curves within 1e-12.
+and cameras; `eval_dataset_pr` on the same predictions (one HDF5 file, written by
+h5py, read by both) JAX's AP within 1e-7 and its curves within 1e-12.
 """
 
 import json
@@ -35,6 +35,7 @@ from gluefactory_tpu_torch.eval import get_benchmark
 from gluefactory_tpu_torch.eval import utils as teu
 from gluefactory_tpu_torch.geometry import depth as tdepth
 from gluefactory_tpu_torch.models import get_model
+from gluefactory_tpu_torch.utils.export_predictions import load_predictions
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -156,13 +157,12 @@ def _predictions(seed, n_pairs=4, n=300):
 @pytest.mark.parametrize("seed", range(3))
 def test_eval_dataset_pr_matches_jax(tmp_path, seed):
     preds = _predictions(seed)
-    np.savez(tmp_path / "p.npz", **{f"{n}/{k}": v for n, p in preds.items() for k, v in p.items()})
     with h5py.File(tmp_path / "p.h5", "w") as f:
         for n, p in preds.items():
             g = f.create_group(n)
             for k, v in p.items():
                 g.create_dataset(k, data=v)
-    out, ref = eval_eth3d.eval_dataset_pr(tmp_path / "p.npz"), j_eval_dataset_pr(tmp_path / "p.h5")
+    out, ref = eval_eth3d.eval_dataset_pr(tmp_path / "p.h5"), j_eval_dataset_pr(tmp_path / "p.h5")
     assert out.keys() == ref.keys()
     assert abs(out["AP"] - ref["AP"]) <= 1e-7
     for k in ("curve_recall", "curve_precision"):
@@ -186,8 +186,7 @@ def test_registry_pipeline_and_cli(eth3d_tree, tmp_path, monkeypatch, capsys):  
         "model.extractor.max_num_keypoints=256", "model.extractor.dtype=null"])
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summaries
     out = tmp_path / "out" / "eth3d" / "sp_open_lg"
-    with np.load(out / "predictions.npz") as f:
-        keys = {k.rsplit("/", 1)[1] for k in f.files}
+    keys = {k for p in load_predictions(out / "predictions.h5").values() for k in p}
     assert keys == {"gt_matches0", "matches0", "matching_scores0"}
     assert np.isfinite(summaries["AP"]) and summaries["AP"] > 0
     with pytest.raises(NotImplementedError, match="not portable"):

@@ -328,7 +328,7 @@ def test_hpatches_cli_end_to_end(tmp_path):
     assert run.returncode == 0, run.stderr[-2000:]
     summaries = json.loads(run.stdout.strip().splitlines()[-1])
     out = tmp_path / "out" / "hpatches" / "c_sp_open_lg"
-    for f in ("predictions.npz", "results.npz", "summaries.json", "conf.json"):
+    for f in ("predictions.h5", "results.h5", "summaries.json", "conf.json"):
         assert (out / f).exists(), f
     assert json.loads((out / "summaries.json").read_text()) == summaries
     saved = json.loads((out / "conf.json").read_text())

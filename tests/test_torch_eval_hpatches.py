@@ -18,10 +18,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
+import torch
 
 cv2 = pytest.importorskip("cv2")
 
 from test_real_schema_benchmarks import HERMETIC_WEIGHTS, _random_homography, _texture  # noqa: E402
+from torch_jax_init import jitted_pipeline_init  # noqa: E402
 
 EXTRACTOR = {"name": "superpoint_open", "max_num_keypoints": 512,
              "detection_threshold": 0.005, "dtype": None}
@@ -65,9 +67,11 @@ def tree(tmp_path_factory):
 @pytest.fixture(scope="module")
 def chains(tree, tmp_path_factory):
     """The port's LightGlue and NN chains and JAX's LightGlue chain, once.
-    The two port chains share one extractor configuration, so the NN chain
-    takes the LightGlue chain's features of each image (the same forward on
-    the same pixels) instead of running SuperPoint again."""
+    The two port chains share one extractor configuration, so SuperPoint
+    runs once an image: a pair's batch is split into its images, each
+    extracted once (SuperPoint-open on the CPU gives a batch's images bit
+    for bit as it gives them alone) and reused, by the other pairs of its
+    scene (view 0 is the scene's reference image) and by the NN chain."""
     import hashlib
 
     import gluefactory_tpu.datasets.hpatches as jhp
@@ -80,18 +84,22 @@ def chains(tree, tmp_path_factory):
     runs, features, forward, misses = {}, {}, SuperPoint.forward, []
 
     def shared_forward(self, data):
-        image = data["image"].contiguous()
-        key = (tuple(image.shape), hashlib.sha1(image.numpy().tobytes()).hexdigest())
-        if key not in features:
-            misses.append(key)
-            features[key] = forward(self, data)
-        return dict(features[key])
+        outs = []
+        for image in data["image"].split(1):
+            image = image.contiguous()
+            key = (tuple(image.shape), hashlib.sha1(image.numpy().tobytes()).hexdigest())
+            if key not in features:
+                misses.append(key)
+                features[key] = forward(self, {**data, "image": image})
+            outs.append(features[key])
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
     old = jhp.DATA_PATH
     jhp.DATA_PATH = data_dir
     try:
         # JAX's chain runs in a thread beside the port's: each side's own work, overlapped
-        with ThreadPoolExecutor(1) as pool, pytest.MonkeyPatch.context() as mp:
+        with jitted_pipeline_init(), ThreadPoolExecutor(1) as pool, \
+                pytest.MonkeyPatch.context() as mp:
             jax_chain = pool.submit(JaxPipeline(_conf(LIGHTGLUE)).run, out / "jax")
             mp.setattr(SuperPoint, "forward", shared_forward)
             for name, matcher in (("lg", LIGHTGLUE), ("nn", NN)):
@@ -126,7 +134,7 @@ def test_per_pair_against_jax(chains, name):
 
     (_, r, d, _), (_, rj, dj, _) = chains["lg"], chains["jax"]
     assert _names(r) == _names(rj) == PAIRS
-    pred, jpred = load_predictions(d / "predictions.npz")[name], _jax_predictions(dj)[name]
+    pred, jpred = load_predictions(d / "predictions.h5")[name], _jax_predictions(dj)[name]
     for i in "01":
         kp, kpj = pred[f"keypoints{i}"], jpred[f"keypoints{i}"]
         ours = {tuple(p) for p in np.round(kp[pred[f"keypoint_scores{i}"] > 0], 2)}
@@ -172,21 +180,21 @@ def test_outputs_and_conf_guard(chains):
     from gluefactory_tpu_torch.utils.export_predictions import load_predictions
 
     s, r, d, pipe = chains["lg"]
-    for f in ("predictions.npz", "results.npz", "summaries.json", "conf.json"):
+    for f in ("predictions.h5", "results.h5", "summaries.json", "conf.json"):
         assert (d / f).exists(), f
     s2, r2 = load_eval(d)
     assert s2 == s == json.loads((d / "summaries.json").read_text())
     assert set(r2) == set(r) and "H_error_ransac_3.0" in r2
     assert all(np.isfinite(v) for v in s.values())
     assert set(pipe.timings) == {"export_s", "eval_s"}
-    stops = [int(p["stop_layer"]) for p in load_predictions(d / "predictions.npz").values()]
+    stops = [int(p["stop_layer"]) for p in load_predictions(d / "predictions.h5").values()]
     assert stops == [8] * 15  # full depth: every pair exits after the last layer
     # one threshold alone through the eval layer gives the sweep's result
     from gluefactory_tpu_torch.datasets.hpatches import HPatchesDataset
     from gluefactory_tpu_torch.eval.utils import eval_homography_robust
 
     data = HPatchesDataset(pipe.conf.data).get_dataset("test")[7]
-    pred = load_predictions(d / "predictions.npz")[data["name"]]
+    pred = load_predictions(d / "predictions.h5")[data["name"]]
     one = eval_homography_robust(data, pred, {"ransac_th": 3.0}, "cpu")
     i = list(r["name"]).index(data["name"])
     assert abs(one["H_error_ransac"] - float(r["H_error_ransac_3.0"][i])) < 1e-3
@@ -212,7 +220,7 @@ def test_export_rescale_fault_pinned(chains, tree, tmp_path):
     from gluefactory_tpu_torch.utils.export_predictions import export_predictions, load_predictions
 
     _, root = tree
-    preds = load_predictions(chains["lg"][2] / "predictions.npz")
+    preds = load_predictions(chains["lg"][2] / "predictions.h5")
     split = HPatchesDataset({"data_dir": str(root), "preprocessing": PRE}).get_dataset("test")
     for idx in range(len(split)):
         data = split[idx]
@@ -231,9 +239,9 @@ def test_export_rescale_fault_pinned(chains, tree, tmp_path):
     batch = collate([split[10]])
     assert batch["name"] == ["v_wide/2"]
     kp = {f"keypoints{i}": np.full((1, 4, 2), 700.0, np.float32) for i in "01"}
-    export_predictions([batch], lambda b: kp, tmp_path / "p.npz")
+    export_predictions([batch], lambda b: kp, tmp_path / "port.h5")
     jax_export([batch], lambda b: kp, tmp_path / "p.h5")
     with h5py.File(str(tmp_path / "p.h5"), "r") as f:
         np.testing.assert_array_equal(f["v_wide/2/keypoints0"], kp["keypoints0"][0])
-    np.testing.assert_array_equal(load_predictions(tmp_path / "p.npz")["v_wide/2"]["keypoints1"],
+    np.testing.assert_array_equal(load_predictions(tmp_path / "port.h5")["v_wide/2"]["keypoints1"],
                                   kp["keypoints1"][0])

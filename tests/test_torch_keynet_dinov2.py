@@ -27,6 +27,7 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.weights import params_from_jax, params_to_jax
@@ -62,11 +63,11 @@ def _run(name, conf, img, seed=0, tweak=None):
         return variables, jm.apply(variables, data)
 
     if tweak is None:
-        variables, ref = jax.jit(init_apply)(jax.random.PRNGKey(seed), data)
+        variables, ref = jit_o0(init_apply)(jax.random.PRNGKey(seed), data)
         variables = jax.tree.map(np.asarray, variables)
     else:
-        variables = tweak(jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(seed), data)))
-        ref = jax.jit(jm.apply)(variables, data)
+        variables = tweak(jax.tree.map(np.asarray, jit_o0(jm.init)(jax.random.PRNGKey(seed), data)))
+        ref = jit_o0(jm.apply)(variables, data)
     tm = get_model(name)(conf, device="cpu")
     if variables:
         tm.load_state_dict(params_from_jax(variables), strict=True)
@@ -145,8 +146,8 @@ def test_mixed_matches_jax(case):
     img = _images(3, 1, 64, 96)
     jm = jax_model("mixed").from_conf(conf)
     data = {"image": jnp.asarray(img)}
-    variables = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(4), data))
-    ref = jax.tree.map(np.asarray, jax.jit(jm.apply)(variables, data))
+    variables = jax.tree.map(np.asarray, jit_o0(jm.init)(jax.random.PRNGKey(4), data))
+    ref = jax.tree.map(np.asarray, jit_o0(jm.apply)(variables, data))
     tm = get_model("mixed")(conf, device="cpu")
     sub = {col: tree["descriptor"] for col, tree in variables.items()}
     tm.descriptor.load_state_dict(params_from_jax(sub), strict=True)

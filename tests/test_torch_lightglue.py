@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.weights import params_from_jax
@@ -45,8 +46,8 @@ def _convert(data, fn):
 def _run_both(data, conf, seed):
     jm = jax_model("lightglue").from_conf(conf)
     jdata = _convert(data, jnp.asarray)
-    variables = jax.jit(jm.init)(jax.random.PRNGKey(seed), jdata)
-    ref = jax.jit(jm.apply)(variables, jdata)
+    variables = jit_o0(jm.init)(jax.random.PRNGKey(seed), jdata)
+    ref = jit_o0(jm.apply)(variables, jdata)
     port_conf = {k: v for k, v in conf.items() if k != "fused_layer"}
     tm = get_model("lightglue")(port_conf, device="cpu")
     tm.load_state_dict(params_from_jax(variables), strict=True)

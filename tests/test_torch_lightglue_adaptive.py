@@ -19,6 +19,9 @@ held equal in that case too, and with `width_capacity: -1` both keep every
 active token.
 """
 
+import functools
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +29,7 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu.models.matchers.lightglue_pretrained import load_npz_params
 from gluefactory_tpu_torch.models import get_model
@@ -59,10 +63,19 @@ def _convert(data, fn):
 _torch = lambda data: _convert(data, lambda a: torch.from_numpy(np.array(a)))
 
 
+@functools.lru_cache(maxsize=None)
+def _seeded(base_json, input_dim):
+    """The JAX model's PRNGKey(0) variables. LightGlue's parameters do not
+    depend on the keypoint counts or masks, so one init (op by op, seconds
+    on the CPU) serves every test's data."""
+    jm = jax_model("lightglue").from_conf(json.loads(base_json))
+    return jm.init(jax.random.PRNGKey(0),
+                   _convert(_data(0, 1, 8, 8, d=input_dim), jnp.asarray))
+
+
 def _init(data, tweak=None, base=BASE):
     """The JAX model's seeded variables, with one parameter overwritten."""
-    jm = jax_model("lightglue").from_conf(base)
-    variables = jm.init(jax.random.PRNGKey(0), _convert(data, jnp.asarray))
+    variables = _seeded(json.dumps(base, sort_keys=True), data["descriptors0"].shape[-1])
     if tweak:
         params = dict(variables["params"])
         params[tweak[0]] = jnp.full_like(params[tweak[0]], tweak[1])
@@ -302,7 +315,7 @@ def test_adaptive_pipeline_matches_jax_with_hermetic_weights():
              for v, i in (("view0", i0), ("view1", i1))}
     jp = jax_model("two_view_pipeline").from_conf(conf)
     variables = jax.tree.map(lambda a: a.astype(jnp.float32), load_npz_params(HERMETIC))
-    ref = jax.tree.map(np.asarray, jax.jit(jp.apply)(variables, jdata))
+    ref = jax.tree.map(np.asarray, jit_o0(jp.apply)(variables, jdata))
 
     pipe = get_model("two_view_pipeline")(conf, device="cpu")
     pipe.load_state_dict(load_hermetic(device="cpu"))

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu_torch.geometry.gt_generation import gt_matches_from_homography
 from gluefactory_tpu_torch.geometry.homography import warp_points
@@ -78,7 +79,7 @@ def _convert(data, fn):
 def _both(conf, data, seed=0):
     jm = jax_model("lightglue").from_conf(conf)
     jdata = _convert(data, jnp.asarray)
-    variables = jax.jit(jm.init)(jax.random.PRNGKey(seed), jdata)
+    variables = jit_o0(jm.init)(jax.random.PRNGKey(seed), jdata)
     tm = get_model("lightglue")(conf, device="cpu")
     tm.load_state_dict(params_from_jax(variables), strict=True)
     return jm, variables, jdata, tm, _convert(data, lambda a: torch.from_numpy(np.array(a)))
@@ -96,7 +97,7 @@ def test_training_forward_loss_and_gradients(m, n, masked, checkpointed):
         losses, metrics = jm.apply({"params": params}, pred, jdata, method="loss")
         return losses["total"].mean(), (pred, losses, metrics)
 
-    (_, (rpred, rlosses, rmetrics)), rgrads = jax.jit(
+    (_, (rpred, rlosses, rmetrics)), rgrads = jit_o0(
         jax.value_and_grad(jloss, has_aux=True))(variables["params"])
 
     pred = tm(tdata)
@@ -130,7 +131,7 @@ def test_inference_loss_reports_metrics():
         pred = jm.apply(v, d)
         return pred, jm.apply(v, pred, d, method="loss")
 
-    rpred, (rlosses, rmetrics) = jax.jit(reference)(variables, jdata)
+    rpred, (rlosses, rmetrics) = jit_o0(reference)(variables, jdata)
     pred = tm(tdata)
     assert not pred["log_assignment"].requires_grad  # inference records no graph
     losses, metrics = tm.loss(pred, tdata)
@@ -183,7 +184,7 @@ def test_mp_training_step_within_the_jax_bf16_gap():
                                     jdata, method="loss")
             return losses["total"].mean(), losses
 
-        (_, losses), grads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        (_, losses), grads = jit_o0(jax.value_and_grad(jloss, has_aux=True))(
             variables["params"])
         return jax.tree.map(np.asarray, losses), jax.tree.map(np.asarray, grads)
 

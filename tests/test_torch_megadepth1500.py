@@ -33,6 +33,7 @@ import torch
 import yaml
 from test_real_schema_benchmarks import megadepth1500_tree  # noqa: F401  (the JAX fixture)
 from test_torch_relpose import _equal_partners, _jax_core, _jax_noise, _rel_pose_err
+from torch_jax_init import jitted_pipeline_init
 
 from gluefactory_tpu.datasets.image_pairs import ImagePairs as JImagePairs
 from gluefactory_tpu.eval.megadepth1500 import MegaDepth1500Pipeline as JPipeline
@@ -115,18 +116,17 @@ CONF = {
 
 @pytest.fixture(scope="module")
 def chains(tree, tmp_path_factory):
-    """The JAX and the port's benchmark on the same configuration, once, and
-    JAX's predictions in the port's format."""
+    """The JAX and the port's benchmark on the same configuration, once;
+    the port reads JAX's `predictions.h5` as it is."""
     root = tmp_path_factory.mktemp("megadepth1500")
     conf = {**CONF, "data": _data_conf(tree)}
-    js, _, jr = JPipeline(conf).run(root / "jax")
+    with jitted_pipeline_init():
+        js, _, jr = JPipeline(conf).run(root / "jax")
     port = MegaDepth1500Pipeline(conf, device="cpu")
     ps, _, pr = port.run(root / "port")
     names = list(pr["name"])
     with h5py.File(str(root / "jax" / "predictions.h5"), "r") as f:
         jpreds = {n: {k: np.asarray(v) for k, v in f[n].items()} for n in names}
-    np.savez(root / "jax_predictions.npz",
-             **{f"{n}/{k}": v for n, p in jpreds.items() for k, v in p.items()})
     split = port.make_dataset(port.conf.data).get_dataset("test")
     matches, gt = {}, []
     for i, (name, p) in enumerate(jpreds.items()):
@@ -143,7 +143,7 @@ def chains(tree, tmp_path_factory):
         matches[name] = (pts[0], pts[1], np.arange(n + pad) < n, np.float32(1.0) / f_mean)
         gt.append(meta["T_0to1"])
     return {"root": root, "names": names, "jax": (js, jr), "port": (ps, pr), "pipeline": port,
-            "jax_preds": jpreds, "port_preds": load_predictions(root / "port" / "predictions.npz"),
+            "jax_preds": jpreds, "port_preds": load_predictions(root / "port" / "predictions.h5"),
             "jax_matches": matches, "gt": gt}
 
 
@@ -174,7 +174,7 @@ def eval_on_jax_predictions(chains):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_ransac, "gumbel", jax_gumbel)
         pipe = chains["pipeline"]
-        _, _, results = pipe.run_eval(pipe.get_eval_data(), chains["root"] / "jax_predictions.npz")
+        _, _, results = pipe.run_eval(pipe.get_eval_data(), chains["root"] / "jax" / "predictions.h5")
     assert len(calls) == 2 * 2
     assert list(results["name"]) == chains["names"]
     return results
@@ -242,7 +242,7 @@ def test_eval_phase_reads_no_pixels(chains, monkeypatch):
 
     monkeypatch.setattr(ip, "read_image", refuse)
     pipe = chains["pipeline"]
-    s, _, _ = pipe.run_eval(pipe.get_eval_data(), chains["root"] / "port" / "predictions.npz")
+    s, _, _ = pipe.run_eval(pipe.get_eval_data(), chains["root"] / "port" / "predictions.h5")
     assert s["mnum_matches"] == chains["port"][0]["mnum_matches"]
 
 
@@ -279,7 +279,7 @@ def test_registry_and_cli(tree, tmp_path, monkeypatch, capsys):
                       "model.extractor.max_num_keypoints=128", "model.extractor.dtype=null"])
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summaries
     out = tmp_path / "out" / "megadepth1500" / "nn_sp_open_lg"
-    for f in ("predictions.npz", "results.npz", "summaries.json", "conf.json"):
+    for f in ("predictions.h5", "results.h5", "summaries.json", "conf.json"):
         assert (out / f).exists(), f
     assert {"rel_pose_error_mAA", "mepi_prec@1e-3", "mransac_inl%"} <= set(summaries)
     assert all(np.isfinite(v) for v in summaries.values())

@@ -43,6 +43,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_init import jitted_pipeline_init
 
 from gluefactory_tpu.datasets import get_dataset as jax_dataset
 from gluefactory_tpu.multipoint.datasets import image_pair_dataset as jmp
@@ -265,10 +266,11 @@ def chains(tmp_path_factory):
 
     out = tmp_path_factory.mktemp("mp")
     s, _, r = MPPipeline(_bench_conf(), device="cpu").run(out / "port")
-    sj, _, rj = JaxPipeline(_bench_conf()).run(out / "jax")
+    with jitted_pipeline_init():
+        sj, _, rj = JaxPipeline(_bench_conf()).run(out / "jax")
     with h5py.File(str(out / "jax" / "predictions.h5"), "r") as f:
         pj = {str(n): {k: np.asarray(v) for k, v in f[str(n)].items()} for n in r["name"]}
-    return (s, r, load_predictions(out / "port" / "predictions.npz")), (sj, rj, pj)
+    return (s, r, load_predictions(out / "port" / "predictions.h5")), (sj, rj, pj)
 
 
 @pytest.mark.parametrize("k", range(3))
@@ -320,7 +322,7 @@ def test_cli(tmp_path, monkeypatch, capsys):
         "model.matcher=" + json.dumps(LIGHTGLUE),
         "data.mp.synthetic=" + json.dumps({"pool": 10, "size": [64, 48]})])
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summaries
-    assert (tmp_path / "MP" / "t" / "predictions.npz").exists()
+    assert (tmp_path / "MP" / "t" / "predictions.h5").exists()
     assert summaries["mnum_keypoints"] == 64
 
 

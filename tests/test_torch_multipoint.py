@@ -8,7 +8,10 @@ scores within 1e-4 (measured <= 7.1e-6, scunet's logits); keypoints equal
 where the scores are separated (no neighbour in the ranking within twice
 the largest score difference between the packages: ties and near-ties may
 order either way, and the seeded detectors score most pixels near 1/65);
-the flax tree back through `params_to_jax` bit for bit. XPoint's swinir on a
+the flax tree back through `params_to_jax` bit for bit. XPoint's swin_lite,
+cbam and vit encoders the same way; its homography heads (pool, srhen at
+width 0.5 and 1, ms2cahe) on a pair of feature maps within 1e-4, their
+trees back bit for bit. XPoint's swinir on a
 16 x 48 image, whose feature map is narrower than the window, within 1e-4
 of the JAX model initialised on that image (its window cut to the map, its
 relative-position table declared for the cut window); a table made for
@@ -23,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.models.utils.layers import same_padding
@@ -37,6 +41,9 @@ MODELS = {
     "xpoint-swin": ("xpoint", {"backbone": "swin", **XP}),
     "xpoint-swinir": ("xpoint", {"backbone": "swinir", **XP}),
     "xpoint-scunet": ("xpoint", {"backbone": "scunet", **XP}),
+    "xpoint-swin_lite": ("xpoint", {"backbone": "swin_lite", **XP}),
+    "xpoint-cbam": ("xpoint", {"backbone": "cbam", **XP}),
+    "xpoint-vit": ("xpoint", {"backbone": "vit", **XP}),
     "magicleap": ("superpoint_magicleap", {"max_num_keypoints": 64, "dense_outputs": True}),
     "magicleap-fixed": ("superpoint_magicleap", {"max_num_keypoints": 64,
                                                  "legacy_sampling": False}),
@@ -79,7 +86,7 @@ def pair(request, inputs):
         variables = jm.init(key, data)
         return variables, jm.apply(variables, data)
 
-    variables, ref = jax.jit(init_apply)(jax.random.PRNGKey(0), data)
+    variables, ref = jit_o0(init_apply)(jax.random.PRNGKey(0), data)
     ref = jax.tree.map(np.asarray, ref)
     model = get_model(tname)(conf, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, variables)), strict=True)
@@ -162,11 +169,45 @@ def test_same_padding_is_flax(size, kernel, stride, pad):
     assert same_padding(size, kernel, stride) == pad
 
 
+def _hold_regression(conf, h_type):
+    """XPoint's `regress_homography` on a pair of (2, 8, 12, 32) NHWC feature
+    maps (the encoders' output at XP on a 64 x 96 image) against the JAX
+    model's, the head initialised by the JAX package and carried over; the
+    head's tree back bit for bit."""
+    rng = np.random.RandomState(9)
+    feats = [rng.randn(2, 8, 12, XP["backbone_dim"]).astype(np.float32) for _ in range(2)]
+    jm = jax_model(MP_JAX + "xpoint").from_conf(conf)
+
+    def init_apply(key, f0, f1):
+        variables = jm.init(key, f0, f1, method="regress_homography")
+        return variables, jm.apply(variables, f0, f1, method="regress_homography")
+
+    variables, ref = jax.tree.map(np.asarray, jit_o0(init_apply)(
+        jax.random.PRNGKey(0), *map(jnp.asarray, feats)))
+    model = get_model(MP + "xpoint")(conf, device="cpu")
+    missing, unexpected = model.load_state_dict(params_from_jax(variables), strict=False)
+    assert not unexpected and not [k for k in missing if k.startswith("h_head.")]
+    with torch.no_grad():
+        out = model.regress_homography(*map(torch.from_numpy, feats)).numpy()
+    assert model.h_type == h_type and out.shape == (2, 4, 2)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
+    head = {k: v for k, v in model.state_dict().items() if k.startswith("h_head.")}
+    back = dict(_flat(params_to_jax(head)))
+    ref_tree = dict(_flat(variables))
+    assert set(back) == set(ref_tree)
+    for k, v in ref_tree.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(MP + "xpoint")({"homography_head": True, **XP}, device="cpu")
+    """`homography_head: True` is the pooled head (concatenated feature means,
+    MLP 256 -> 128 -> 8): it regresses as the JAX model does and its tree
+    round-trips; an unknown backbone or head still raises."""
+    _hold_regression({"homography_head": True, **XP}, "pool")
     with pytest.raises(ValueError, match="unknown XPoint backbone"):
         get_model(MP + "xpoint")({"backbone": "resnet", **XP}, device="cpu")
+    with pytest.raises(ValueError, match="unknown homography head"):
+        get_model(MP + "xpoint")({"homography_head": "dlt", **XP}, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -183,7 +224,7 @@ def swinir_small():
         variables = jm.init(key, data)
         return variables, jm.apply(variables, data)
 
-    variables, ref = jax.tree.map(np.asarray, jax.jit(init_apply)(jax.random.PRNGKey(0), data))
+    variables, ref = jax.tree.map(np.asarray, jit_o0(init_apply)(jax.random.PRNGKey(0), data))
     return conf, img, variables, ref
 
 
@@ -217,10 +258,17 @@ def test_swinir_refuses_a_table_of_another_window(case, swinir_small, inputs):
         model({"image": torch.from_numpy(img)})
 
 
-@pytest.mark.parametrize("backbone", ["swin_lite", "cbam", "vit"])
-def test_unported_backbones_raise(backbone):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        get_model(MP + "xpoint")({"backbone": backbone, **XP}, device="cpu")
+@pytest.mark.parametrize("backbone,head,h_type", [
+    ("swin_lite", {"type": "srhen", "width": 0.5}, "srhen"),
+    ("cbam", "srhen", "srhen"),
+    ("vit", "ms2cahe", "ms2cahe")], ids=["swin_lite", "cbam", "vit"])
+def test_unported_backbones_raise(backbone, head, h_type):
+    """XPoint with each of its other encoders builds with one of the other
+    heads: the correlation head (SRHEN, width 0.5 and 1; its first conv
+    sized by the map it sees) and the cross-attention head (MS2CAHE, flax's
+    Dense_0 ... Dense_9) regress as the JAX model's do (the encoders
+    themselves: `test_outputs_match_jax`)."""
+    _hold_regression({"backbone": backbone, "homography_head": head, **XP}, h_type)
 
 
 @pytest.mark.parametrize("name", ["multipoint", "xpoint", "superpoint_magicleap"])

@@ -20,6 +20,7 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu.models.matchers.lightglue_pretrained import load_npz_params
 from gluefactory_tpu_torch.estimators.homography.torch_ransac import TorchRansacHomography
@@ -28,6 +29,7 @@ from gluefactory_tpu_torch.eval.hpatches import HPatchesPipeline
 from gluefactory_tpu_torch.eval.synthetic import SyntheticHomographyPipeline
 from gluefactory_tpu_torch.geometry.wrappers import Camera
 from gluefactory_tpu_torch.models import get_model
+from gluefactory_tpu_torch.scripts.export_local_features import export_local_features
 from gluefactory_tpu_torch.scripts.slam_scale_run import LoopClosingSlam
 from gluefactory_tpu_torch.sfm.slam import IncrementalSlam
 from gluefactory_tpu_torch.train.trainer import Trainer
@@ -60,7 +62,7 @@ def test_pipeline_matches_jax_with_hermetic_weights():
     jp = jax_model("two_view_pipeline").from_conf(CONF)
     # the npz holds the whole variables tree: no init needed
     variables = jax.tree.map(lambda a: a.astype(jnp.float32), load_npz_params(HERMETIC))
-    ref = jax.tree.map(np.asarray, jax.jit(jp.apply)(variables, jdata))
+    ref = jax.tree.map(np.asarray, jit_o0(jp.apply)(variables, jdata))
 
     pipe = get_model("two_view_pipeline")(CONF, device="cpu")
     pipe.load_state_dict(load_hermetic(device="cpu"))
@@ -93,6 +95,8 @@ def test_pipeline_matches_jax_with_hermetic_weights():
     lambda: get_model("triplet_pipeline")(CONF),
     lambda: IncrementalSlam(Camera.from_params(480, 360, 420.0, 420.0, 240.0, 180.0), None),
     lambda: LoopClosingSlam(Camera.from_params(480, 360, 420.0, 420.0, 240.0, 180.0)),
+    lambda: get_model("gluefactory_tpu_torch.multipoint.models.homography_net")(),
+    lambda: export_local_features("homographies", "sp"),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -123,11 +127,13 @@ def test_port_imports_no_jax():
             "image_pairs.py", "megadepth1500.py", "eth3d.py", "image_folder.py", "hdf5.py",
             "megadepth.py", "cache_loader.py", "triplet_pipeline.py",
             "export_megadepth.py", "ba.py", "pose_graph.py", "slam.py", "triangulation.py",
-            "metrics.py", "pair_matching.py", "slam_scale_run.py"} <= names
+            "metrics.py", "pair_matching.py", "slam_scale_run.py", "export_predictions.py",
+            "export_local_features.py", "viz2d.py", "visualize_batch.py"} <= names
     multipoint = {p.relative_to(ROOT / "gluefactory_tpu_torch" / "multipoint").as_posix()
                   for p in files if "multipoint" in p.parts}
     assert {"datasets/image_pair_dataset.py", "models/multipoint.py", "models/xpoint.py",
-            "models/backbones.py", "utils/evaluation.py"} <= multipoint
+            "models/backbones.py", "utils/evaluation.py", "models/homography_net.py",
+            "utils/homographies.py"} <= multipoint
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -54,6 +54,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_init import jitted_pipeline_init
 
 from gluefactory_tpu.estimators.ransac import ransac_relative_pose_jit
 from gluefactory_tpu.eval.synthetic_pose import SyntheticPosePipeline as JPipeline
@@ -349,7 +350,8 @@ CONF = {
 def chains(tmp_path_factory):
     """The JAX and the port's benchmark on the same configuration, once."""
     root = tmp_path_factory.mktemp("synthetic_pose")
-    js, _, jr = JPipeline(CONF).run(root / "jax")
+    with jitted_pipeline_init():
+        js, _, jr = JPipeline(CONF).run(root / "jax")
     port = SyntheticPosePipeline(CONF, device="cpu")
     ps, _, pr = port.run(root / "port")
     with h5py.File(str(root / "jax" / "predictions.h5"), "r") as f:
@@ -370,10 +372,8 @@ def chains(tmp_path_factory):
         th = np.float32(1.0) / np.float32(float(cam.f.mean()))
         matches[name] = (pts[0], pts[1], np.arange(n + pad) < n, th)
         gt.append(meta["T_0to1"])
-    np.savez(root / "jax_predictions.npz",
-             **{f"{n}/{k}": v for n, p in jpreds.items() for k, v in p.items()})
     return {"root": root, "jax": (js, jr), "port": (ps, pr), "pipeline": port,
-            "jax_preds": jpreds, "port_preds": load_predictions(root / "port" / "predictions.npz"),
+            "jax_preds": jpreds, "port_preds": load_predictions(root / "port" / "predictions.h5"),
             "jax_matches": matches, "gt": gt}
 
 
@@ -424,7 +424,7 @@ def eval_on_jax_predictions(chains):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_ransac, "gumbel", jax_gumbel)
         pipe = chains["pipeline"]
-        _, _, results = pipe.run_eval(pipe.get_eval_data(), chains["root"] / "jax_predictions.npz")
+        _, _, results = pipe.run_eval(pipe.get_eval_data(), chains["root"] / "jax" / "predictions.h5")
     assert len(calls) == 2 * 3
     assert list(results["name"]) == PAIRS
     return results
@@ -500,7 +500,7 @@ def test_benchmark_registry_and_cli(tmp_path):
     assert run.returncode == 0, run.stderr[-2000:]
     summaries = json.loads(run.stdout.strip().splitlines()[-1])
     out = tmp_path / "out" / "synthetic_pose" / "sp_open_lg_depth"
-    for f in ("predictions.npz", "results.npz", "summaries.json", "conf.json"):
+    for f in ("predictions.h5", "results.h5", "summaries.json", "conf.json"):
         assert (out / f).exists(), f
     assert {"rel_pose_error_mAA", "mepi_prec@1e-3", "mransac_inl%"} <= set(summaries)
     assert all(np.isfinite(v) for v in summaries.values())

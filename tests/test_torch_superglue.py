@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu.models.matchers import superglue as jsg
 from gluefactory_tpu_torch.models import get_model
@@ -69,10 +70,10 @@ def test_superglue_matches_jax(m, n, masked, scores, sizes):
     data = _data(m + n, 2, m, n, masked, scores, sizes)
     jm = jax_model("superglue").from_conf(CONF)
     jdata = _convert(data, jnp.asarray)
-    variables = jax.jit(jm.init)(jax.random.PRNGKey(m), jdata)
+    variables = jit_o0(jm.init)(jax.random.PRNGKey(m), jdata)
     # the dustbin score away from its initial 1, so that the bridge carries it
     variables = {"params": {**variables["params"], "bin_score": jnp.asarray(0.7)}}
-    ref = jax.tree.map(np.asarray, jax.jit(jm.apply)(variables, jdata))
+    ref = jax.tree.map(np.asarray, jit_o0(jm.apply)(variables, jdata))
 
     tm = get_model("superglue")(CONF, device="cpu")
     tm.load_state_dict(superglue_from_flax(variables), strict=True)
@@ -90,7 +91,7 @@ def test_superglue_matches_jax(m, n, masked, scores, sizes):
 def test_superglue_bridge_is_strict_and_complete():
     data = _data(0, 1, 16, 16, False)
     jm = jax_model("superglue").from_conf(CONF)
-    variables = jax.jit(jm.init)(jax.random.PRNGKey(0), _convert(data, jnp.asarray))
+    variables = jit_o0(jm.init)(jax.random.PRNGKey(0), _convert(data, jnp.asarray))
     state = superglue_from_flax(variables)
     assert len(state) == len(jax.tree.leaves(variables))
     tm = get_model("superglue")(CONF, device="cpu")
@@ -168,13 +169,13 @@ def test_superglue_loss_and_gradients_match_jax():
     data = _train_data()
     jdata = _convert(data, jnp.asarray)
     jm = jax_model("superglue").from_conf(TRAIN)
-    variables = jax.jit(jm.init)(jax.random.PRNGKey(0), jdata)
+    variables = jit_o0(jm.init)(jax.random.PRNGKey(0), jdata)
 
     def loss_fn(p):
         losses, _ = jm.apply(p, jm.apply(p, jdata), jdata, method="loss")
         return losses["total"].mean()
 
-    ref_loss, ref = jax.jit(jax.value_and_grad(loss_fn))(variables)
+    ref_loss, ref = jit_o0(jax.value_and_grad(loss_fn))(variables)
     ref = superglue_from_flax(ref)
 
     tm = get_model("superglue")(TRAIN, device="cpu")

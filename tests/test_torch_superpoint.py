@@ -13,6 +13,7 @@ import numpy as np
 import torch
 from scipy.ndimage import gaussian_filter
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.models.extractors.superpoint_open import simple_nms
@@ -41,8 +42,8 @@ def test_superpoint_matches_jax():
     conf = {"max_num_keypoints": 200, "dtype": "float32"}
     img = _image(0, 2, 120, 160)
     jm = jax_model("superpoint_open").from_conf(conf)
-    variables = _random_stats(jax.jit(jm.init)(jax.random.PRNGKey(0), {"image": jnp.asarray(img)}), 1)
-    ref = jax.tree.map(np.asarray, jax.jit(jm.apply)(variables, {"image": jnp.asarray(img)}))
+    variables = _random_stats(jit_o0(jm.init)(jax.random.PRNGKey(0), {"image": jnp.asarray(img)}), 1)
+    ref = jax.tree.map(np.asarray, jit_o0(jm.apply)(variables, {"image": jnp.asarray(img)}))
 
     tm = get_model("superpoint_open")(conf, device="cpu")
     tm.load_state_dict(params_from_jax(variables), strict=True)

@@ -57,6 +57,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_init import jit_o0
 import gluefactory_tpu.settings as jax_settings
 import gluefactory_tpu.utils.experiments as jax_exps
 import gluefactory_tpu_torch.utils.experiments as exps
@@ -152,7 +153,7 @@ def test_multipoint_running_statistics_match_flax():
         pred, upd = jm.apply(variables, data, mutable=["batch_stats"])
         return variables, pred, upd
 
-    variables, ref, upd = jax.tree.map(np.asarray, jax.jit(init_apply)(jax.random.PRNGKey(0), data))
+    variables, ref, upd = jax.tree.map(np.asarray, jit_o0(init_apply)(jax.random.PRNGKey(0), data))
     model = get_model("gluefactory_tpu_torch.multipoint.models.multipoint")(conf, device="cpu")
     model.load_state_dict(params_from_jax(variables), strict=True)
     out = model({"image": torch.from_numpy(img), "is_optical": torch.from_numpy(opt)})
@@ -231,7 +232,7 @@ def test_superpoint_training_step_matches_jax_grad():
         return variables, out, grads
 
     variables, (_, (losses, pred, stats)), grads = jax.tree.map(
-        np.asarray, jax.jit(init_and_grad)(jax.random.PRNGKey(0), jdata))
+        np.asarray, jit_o0(init_and_grad)(jax.random.PRNGKey(0), jdata))
 
     model = get_model("superpoint_open")(NARROW, device="cpu")
     model.load_state_dict(params_from_jax(variables), strict=True)
@@ -303,7 +304,7 @@ def stage1_runs(tmp_path_factory):
         for mod in (jax_settings, jax_exps):
             mp.setattr(mod, "TRAINING_PATH", root / "jax")
         model_cls = type(jax_model("superpoint_open").from_conf(conf["model"]))
-        mp.setattr(model_cls, "init", lambda self, *a, **k: jax.jit(
+        mp.setattr(model_cls, "init", lambda self, *a, **k: jit_o0(
             functools.partial(flax.linen.Module.init, self))(*a, **k))
         jt = JaxTrainer(conf, "s1", root / "jax" / "s1")
         jt.build()

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.datasets.synthetic_two_view import SyntheticTwoViewDataset as JDataset
 from gluefactory_tpu.geometry.wrappers import Camera as JCamera
 from gluefactory_tpu.geometry.wrappers import Pose as JPose
@@ -135,7 +136,7 @@ def test_training_step_on_depth_labels_matches_jax():
     tdata.update(tgt)
 
     jm = jax_model("lightglue").from_conf(LG)
-    variables = jax.jit(jm.init)(jax.random.PRNGKey(0), jdata)
+    variables = jit_o0(jm.init)(jax.random.PRNGKey(0), jdata)
     tm = get_model("lightglue")(LG, device="cpu")
     tm.load_state_dict(params_from_jax(variables), strict=True)
 
@@ -144,7 +145,7 @@ def test_training_step_on_depth_labels_matches_jax():
         losses, _ = jm.apply({"params": params}, pred, jdata, method="loss")
         return losses["total"].mean(), losses
 
-    (_, rlosses), rgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(variables["params"])
+    (_, rlosses), rgrads = jit_o0(jax.value_and_grad(jloss, has_aux=True))(variables["params"])
     losses, _ = tm.loss(tm(tdata), tdata)
     assert set(losses) == set(rlosses)
     for key in losses:

@@ -28,6 +28,7 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.train.trainer import Trainer
@@ -68,14 +69,14 @@ def jax_run():
     """The JAX pipeline's seeded variables, its loss and gradients."""
     data = _convert(_pairs(0), jnp.asarray)
     jm = jax_model("two_view_pipeline").from_conf(CONF)
-    variables = jax.jit(jm.init)(jax.random.PRNGKey(0), data)
+    variables = jit_o0(jm.init)(jax.random.PRNGKey(0), data)
 
     def loss_fn(params):
         v = {"params": params, "batch_stats": variables["batch_stats"]}
         losses, _ = jm.apply(v, jm.apply(v, data), data, method="loss")
         return losses["total"].mean()
 
-    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
+    loss, grads = jit_o0(jax.value_and_grad(loss_fn))(variables["params"])
     state = params_from_jax(jax.tree.map(np.asarray, variables))
     return state, float(loss), params_from_jax({"params": jax.tree.map(np.asarray, grads)})
 

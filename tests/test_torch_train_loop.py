@@ -39,6 +39,7 @@ import pytest
 import torch
 
 import flax.linen
+from torch_jax_init import jit_o0
 import gluefactory_tpu.settings as jax_settings
 import gluefactory_tpu.utils.experiments as jax_exps
 import gluefactory_tpu_torch.utils.experiments as exps
@@ -121,7 +122,7 @@ def runs(tmp_path_factory):
         # the JAX trainer initialises its model eagerly, op by op (half a
         # minute on the CPU); the same init under jit takes seconds
         pipeline = type(jax_model(conf["model"]["name"]).from_conf(conf["model"]))
-        mp.setattr(pipeline, "init", lambda self, *a, **k: jax.jit(
+        mp.setattr(pipeline, "init", lambda self, *a, **k: jit_o0(
             functools.partial(flax.linen.Module.init, self))(*a, **k))
         hermetic = jax.tree.map(lambda a: np.asarray(a, np.float32), load_npz_params(HERMETIC))
         jax_exps.save_experiment("sp", {c: {"extractor": hermetic[c]["extractor"]}
@@ -192,14 +193,15 @@ def test_final_parameters_match_jax(runs):
 
 
 def test_summary_records(runs):
-    """The events the JAX test_train_and_checkpoint_roundtrip asserts,
-    figures excepted."""
+    """The events the JAX test_train_and_checkpoint_roundtrip asserts, and
+    the PR figure of `pr_curves`."""
     keys = {k for r in runs["port"] for k in r}
     assert {"train/loss/total", "train/grad/norm", "train/grad/norm/matcher",
             "train/grad/module_norms__hist", "val/match_AP", "val/loss/total"} <= keys
     hist = next(r["train/grad/module_norms__hist"] for r in runs["port"]
                 if "train/grad/module_norms__hist" in r)
     assert set(hist) == {"counts", "edges", "mean", "max"} and sum(hist["counts"]) == 2
+    assert list((runs["root"] / "exp" / "figures").glob("val_match_pr_*.png"))
 
 
 def test_checkpoint_layout_and_round_trip(runs):
@@ -291,9 +293,10 @@ def test_resume_equals_uninterrupted(runs, tmp_path, monkeypatch):
 
 def test_options_not_ported_raise(monkeypatch):
     conf = copy.deepcopy(tiny_conf())
-    conf["train"]["plot"] = [1, "gluefactory_tpu.visualization.visualize_batch.make_match_figures"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        Trainer(conf, "e", None, device="cpu")
+    # `train.plot` is ported (tests/test_torch_figures.py): the trainer takes it
+    conf["train"]["plot"] = [1, "gluefactory_tpu_torch.visualization.visualize_batch."
+                                "make_match_figures"]
+    assert Trainer(conf, "e", None, device="cpu").conf.train.plot[0] == 1
     from gluefactory_tpu_torch.eval import get_benchmark
     from gluefactory_tpu_torch.eval.megadepth1500 import MegaDepth1500Pipeline
     from gluefactory_tpu_torch.train.__main__ import main

@@ -19,6 +19,7 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu.models.matchers.lightglue_pretrained import load_npz_params
 from gluefactory_tpu.train import step as jstep
@@ -138,7 +139,7 @@ def test_two_full_steps_match_jax():
     tx = jstep.make_optimizer(conf["train"])
     state = jstep.TrainState(jnp.zeros((), jnp.int32), variables["params"],
                              variables["batch_stats"], tx.init(variables["params"]))
-    jtrain = jax.jit(jstep.make_train_step(jm, tx))
+    jtrain = jit_o0(jstep.make_train_step(jm, tx))
 
     trainer = Trainer(conf, device="cpu")
     trainer.load_weights(load_hermetic(device="cpu"))

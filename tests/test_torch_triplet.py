@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_init import jit_o0
 import gluefactory_tpu.datasets.megadepth as jmd
 import gluefactory_tpu_torch.datasets.megadepth as tmd
 from gluefactory_tpu.datasets.base_dataset import collate as jax_collate
@@ -58,8 +59,8 @@ def jax_reference(homography_triplets):
     stacked = jax_stack(jdata)
     jp = jax_model("two_view_pipeline").from_conf(CONF)
     variables = jax.tree.map(lambda a: a.astype(jnp.float32), load_npz_params(HERMETIC))
-    pred = jax.jit(jp.apply)(variables, stacked)
-    losses, _ = jax.jit(lambda v, p, d: jp.apply(v, p, d, method="loss"))(variables, pred,
+    pred = jit_o0(jp.apply)(variables, stacked)
+    losses, _ = jit_o0(lambda v, p, d: jp.apply(v, p, d, method="loss"))(variables, pred,
                                                                          stacked)
     return (jax.tree.map(np.asarray, pred), jax.tree.map(np.asarray, losses), jdata, jp,
             variables)

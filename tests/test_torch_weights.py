@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from torch_jax_init import jit_o0
 from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu_torch.models import get_model
 from gluefactory_tpu_torch.weights import (
@@ -41,7 +42,7 @@ def test_params_from_fresh_jax_pipeline():
     img = jnp.asarray(rng.rand(1, 64, 64, 1), jnp.float32)
     data = {"view0": {"image": img}, "view1": {"image": img}}
     model = jax_model("two_view_pipeline").from_conf(CONF)
-    variables = jax.jit(model.init)(jax.random.PRNGKey(1), data)
+    variables = jit_o0(model.init)(jax.random.PRNGKey(1), data)
     state = params_from_jax(variables)
     pipe = get_model("two_view_pipeline")(CONF, device="cpu")
     pipe.load_state_dict(state, strict=True)

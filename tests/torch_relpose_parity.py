@@ -124,14 +124,6 @@ def scaled_h5(h5_file, out_file, scale):
         f.visititems(copy)
 
 
-def h5_to_npz(h5_file, npz_file):
-    with h5py.File(str(h5_file), "r") as f:
-        arrays = {}
-        f.visititems(lambda name, obj: arrays.__setitem__(name, np.asarray(obj))
-                     if isinstance(obj, h5py.Dataset) else None)
-    np.savez(npz_file, **arrays)
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--pairs", type=int, default=20)
@@ -154,8 +146,7 @@ def run(root, args):
         c = conf(weights, args)
         jpipe, ppipe = JPipeline(c), SyntheticPosePipeline(c, device="cpu")
         jsum, _, jres = jpipe.run(root / tag / "jax")
-        h5_to_npz(root / tag / "jax" / "predictions.h5", root / tag / "jax_predictions.npz")
-        jpred = root / tag / "jax_predictions.npz"
+        jpred = root / tag / "jax" / "predictions.h5"
         j0 = [float(e) for e in jres["rel_pose_error_1.0"]]
         p0 = port_eval(ppipe, jpred, 0)
         scaled_h5(root / tag / "jax" / "predictions.h5", root / tag / "jax_scaled.h5", 1 + 1e-7)
@@ -165,7 +156,7 @@ def run(root, args):
             spread["jax"].append(maa(jax_eval(jpipe, root / tag / "jax" / "predictions.h5", s)))
             spread["port"].append(maa(port_eval(ppipe, jpred, s)))
         psum, _, _ = ppipe.run(root / tag / "port")
-        ppred = root / tag / "port" / "predictions.npz"
+        ppred = root / tag / "port" / "predictions.h5"
         own_export = {"jax_draws": port_eval(ppipe, ppred, 0),
                       "own_generator": port_eval(ppipe, ppred, None)}
         report[tag] = {
