@@ -6,7 +6,8 @@ detector's pretraining -> LightGlue -> HPatches), the other training paths
 (bf16, a trainable extractor, SuperGlue, two processes), the other
 extractors, the MegaDepth training recipe, the SfM/SLAM layer, XPoint's
 other encoders and homography heads, HomographyNet, homographic
-adaptation, the feature export and the training figures on one GPU.
+adaptation, the feature export, the training figures and the
+official-checkpoint path on one GPU.
 
     python3 chip_smoke.py [--train-batch PAIRS]
 
@@ -245,6 +246,21 @@ adaptation, the feature export and the training figures on one GPU.
      keypoints against one call on all views in bf16 and fp32; (e) phase 5's
      trainer with `train.plot` and `pr_curves`: the PNG figures exist and
      decode to their size, ms a figure.
+ 19. the official-checkpoint path (no kernel of its own), with seeded
+     state dicts in the official layouts at the published widths
+     (MagicLeap SuperPoint; cvg LightGlue, 9 x 256, 4 heads, `fourier`, for
+     256-d and for 128-d input; MagicLeap SuperGlue, 9 pairs, BatchNorm)
+     written as `.pth` and converted by the port's command line
+     (scripts/convert_weights.py): configs/superpoint+lightglue-official.json
+     with `matcher.weights` at the MegaDepth-1500 shape (a 1200 x 1600 pair,
+     2048 keypoints, fp32, b1: 9 K3a, 9 K3b, 1 K4),
+     configs/aliked+lightglue-official.json at 480 x 640 / 1024 keypoints (9
+     K1, 9 K2, 1 K4 after the 128 -> 256 input projection) and
+     configs/superpoint+superglue-official.json (`ln: false`) at 1024
+     keypoints (36 K7a), each against the plain path (log assignment within
+     5e-3 for LightGlue, 1e-3 for SuperGlue, matches0 on >= 99%) with its ms
+     a pair; `match_pair_with_weights` on the card (9 / 9 / 1 launches, its
+     result printed: seeded weights match almost nothing).
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and the result JSON. Without CUDA, or
 without the package beside it, it exits 1 and prints no result.
@@ -5779,6 +5795,256 @@ def run_figures_phase():
         f"{ha_ms:.1f} ms; export {vps:.2f} views/s; {fig_ms:.1f} ms a figure")
 
 
+# ----------------------------------------------------------------- phase 19
+SP_OFFICIAL = (("conv1a", 64, 1), ("conv1b", 64, 64), ("conv2a", 64, 64), ("conv2b", 64, 64),
+               ("conv3a", 128, 64), ("conv3b", 128, 128), ("conv4a", 128, 128),
+               ("conv4b", 128, 128), ("convPa", 256, 128), ("convPb", 65, 256),
+               ("convDa", 256, 128), ("convDb", 256, 256))
+
+
+def official_states(seed):
+    """Seeded state dicts in the official checkpoints' layouts at their
+    published widths: MagicLeap SuperPoint (256-d descriptors); cvg
+    LightGlue (d = 256, 9 layers, 4 heads, `fourier` posenc) for 256-d input
+    and for 128-d input (`input_proj`, as the ALIKED / DISK checkpoints);
+    MagicLeap SuperGlue (9 GNN pairs, a 32-64-128-256 keypoint encoder with
+    BatchNorm). Fan-in-scaled weights (SuperGlue's residual updates scaled
+    down, or 18 layers without a LayerNorm grow its descriptors 45-fold):
+    they match little, so the log assignment against the plain path is what
+    holds the kernels."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def w(*shape, gain=1.0):
+        fan_in = math.prod(shape[1:]) if len(shape) > 1 else shape[0]
+        return torch.randn(*shape, generator=gen) * gain / math.sqrt(fan_in)
+
+    def lin(sd, key, *shape):  # a Linear / Conv: weight (out, in, ...), bias
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = w(*shape), w(shape[0], gain=0.1)
+
+    def bn(sd, key, c):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = 1 + w(c, gain=0.1), w(c, gain=0.1)
+        sd[f"{key}.running_mean"], sd[f"{key}.running_var"] = w(c, gain=0.5), 1 + w(c).abs()
+
+    sp = {}
+    for name, cout, cin in SP_OFFICIAL:
+        k = 1 if name in ("convPb", "convDb") else 3
+        lin(sp, name, cout, cin, k, k)
+
+    def lightglue(input_dim=None, d=D, layers=9):
+        sd = {}
+        for i in range(layers):
+            pre = f"transformers.{i}"
+            lin(sd, f"{pre}.self_attn.Wqkv", 3 * d, d)
+            lin(sd, f"{pre}.self_attn.out_proj", d, d)
+            for nm in ("to_qk", "to_v", "to_out"):
+                lin(sd, f"{pre}.cross_attn.{nm}", d, d)
+            for blk in ("self_attn", "cross_attn"):
+                lin(sd, f"{pre}.{blk}.ffn.0", 2 * d, 2 * d)
+                bn(sd, f"{pre}.{blk}.ffn.1", 2 * d)  # a LayerNorm: its weight and bias
+                del sd[f"{pre}.{blk}.ffn.1.running_mean"], sd[f"{pre}.{blk}.ffn.1.running_var"]
+                lin(sd, f"{pre}.{blk}.ffn.3", d, 2 * d)
+            lin(sd, f"log_assignment.{i}.final_proj", d, d)
+            lin(sd, f"log_assignment.{i}.matchability", 1, d)
+            if i < layers - 1:
+                lin(sd, f"token_confidence.{i}.token.0", 1, d)
+        sd["posenc.Wr.weight"] = torch.randn(d // 8, 2, generator=gen)
+        if input_dim:
+            lin(sd, "input_proj", d, input_dim)
+        return sd
+
+    sg, chans = {}, [3, 32, 64, 128, 256, D]
+    for j in range(len(chans) - 1):
+        lin(sg, f"kenc.encoder.{3 * j}", chans[j + 1], chans[j], 1)
+        if j < len(chans) - 2:
+            bn(sg, f"kenc.encoder.{3 * j + 1}", chans[j + 1])
+    for i in range(18):
+        pre = f"gnn.layers.{i}"
+        for j in range(3):
+            lin(sg, f"{pre}.attn.proj.{j}", D, D, 1)
+        lin(sg, f"{pre}.attn.merge", D, D, 1)
+        lin(sg, f"{pre}.mlp.0", 2 * D, 2 * D, 1)
+        bn(sg, f"{pre}.mlp.1", 2 * D)
+        lin(sg, f"{pre}.mlp.3", D, 2 * D, 1)
+        sg[f"{pre}.mlp.3.weight"] *= 0.1  # a small update: the descriptors keep their scale
+    lin(sg, "final_proj", D, D, 1)
+    sg["bin_score"] = torch.tensor(1.2)
+    return {"superpoint": sp, "lightglue": lightglue(), "lightglue_128": lightglue(128),
+            "superglue": sg}
+
+
+def official_pipeline(name, k, weights, sp_npz=None):
+    """configs/{name}.json's model at `k` keypoints, its matcher's `weights`
+    set; SuperPoint's converted weights loaded into the extractor (no
+    configuration route exists for them: ROADMAP Queue 3a)."""
+    from gluefactory_tpu_torch.models import get_model
+    from gluefactory_tpu_torch.utils.config import load_conf
+    from gluefactory_tpu_torch.weights import load_npz
+
+    conf = load_conf(name)["model"]
+    conf["extractor"]["max_num_keypoints"] = k
+    conf["matcher"]["weights"] = str(weights)
+    pipe = get_model("two_view_pipeline")(conf, device="cuda").eval()
+    if sp_npz is not None:
+        pipe.extractor.load_state_dict(load_npz(sp_npz), strict=True)
+    return pipe
+
+
+def assignment_gap(out, ref, mask0, mask1):
+    """(max abs difference of the log assignments over the valid rows and
+    columns and the dustbins, share of valid keypoints whose matches0 agree)."""
+    import torch
+
+    rows = torch.cat([mask0, torch.ones_like(mask0[:, :1])], 1)
+    cols = torch.cat([mask1, torch.ones_like(mask1[:, :1])], 1)
+    keep = rows[:, :, None] & cols[:, None, :]
+    la, lr = out["log_assignment"], ref["log_assignment"]
+    if not bool(torch.isfinite(la[keep]).all() and torch.isfinite(lr[keep]).all()):
+        fail("a non-finite log assignment entry on the official path")
+    err = float((la - lr).abs()[keep].max())
+    agree = float((out["matches0"] == ref["matches0"])[mask0].float().mean())
+    return err, agree
+
+
+def check_official_lightglue(name, pipe, h, w, seed, label, smi):
+    """One pair through `pipe` with the launches counted, against the plain
+    path (log assignment within 5e-3, matches0 on >= 99%), timed."""
+    import torch
+
+    img0, img1, hs = synthetic_pair(seed, 1, h, w)
+    size = torch.tensor([[float(w), float(h)]], device="cuda")
+    data = {"view0": {"image": img0, "image_size": size},
+            "view1": {"image": img1, "image_size": size}}
+    torch.cuda.synchronize()
+    reset_counts()
+    out = pipe(data)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != [9, 9, 1]:
+        fail(f"{label}: expected 9 self, 9 cross, 1 assignment launches, got {counts}")
+    with plain_path():
+        ref = pipe(data)
+    if read_counts() != counts:
+        fail(f"{label}: the plain path launched a kernel")
+    err, agree = assignment_gap(out, ref, out["keypoint_mask0"], out["keypoint_mask1"])
+    nkp = int(out["keypoint_mask0"].sum())
+    nmatch = int((out["matches0"] >= 0).sum())
+    ms = timed(lambda: pipe(data), 5)
+    log(f"[{label}] {name} at {h}x{w}, {nkp} keypoints, fp32, b1: launches self {counts[0]}, "
+        f"cross {counts[1]}, assignment {counts[2]}; against the plain path log_assignment within "
+        f"{err:.3g} (bar 5e-3), matches0 equal on {agree:.4f} (bar 0.99); {nmatch} matches, "
+        f"precision@3px {precision(out, hs):.4f}; {ms:.2f} ms a pair ({smi})")
+    if not err <= 5e-3 or agree < 0.99:
+        fail(f"{label}: the kernel path disagrees with the plain path")
+    return ms
+
+
+def check_official_superglue(pipe, h, w, seed, smi):
+    """superpoint+superglue-official on one pair: 36 K7a launches, against
+    the plain attention as phase 7 holds it (1e-3, 99%)."""
+    import torch
+
+    from gluefactory_tpu_torch.models.matchers import superglue as sgmod
+    from gluefactory_tpu_torch.ops import attention as ops
+    from gluefactory_tpu_torch.ops import fused_attention as fa
+
+    img0, img1, hs = synthetic_pair(seed, 1, h, w)
+    size = torch.tensor([[float(w), float(h)]], device="cuda")
+    data = {"view0": {"image": img0, "image_size": size},
+            "view1": {"image": img1, "image_size": size}}
+    torch.cuda.synchronize()
+    fa.fused_attention.launches = 0
+    out = pipe(data)
+    torch.cuda.synchronize()
+    launches = fa.fused_attention.launches
+    if launches != 36:
+        fail(f"superglue-official: expected 36 K7a launches, got {launches}")
+    saved = sgmod.masked_attention
+    sgmod.masked_attention = lambda q, k_, v, mq, mk: ops.attention_heads(
+        q, k_, v, mq, mk, q.shape[-1] ** -0.5).to(q.dtype)
+    try:
+        ref = pipe(data)
+    finally:
+        sgmod.masked_attention = saved
+    if fa.fused_attention.launches != 36:
+        fail("superglue-official: the plain path launched the kernel")
+    err, agree = assignment_gap(out, ref, out["keypoint_mask0"], out["keypoint_mask1"])
+    ms = timed(lambda: pipe(data), 5)
+    log(f"[sg19] superpoint+superglue-official at {h}x{w}, "
+        f"{int(out['keypoint_mask0'].sum())} keypoints, ln false: K7a launches {launches}; "
+        f"against the plain path log_assignment within {err:.3g} (bar 1e-3), matches0 equal on "
+        f"{agree:.4f} (bar 0.99); {int((out['matches0'] >= 0).sum())} matches; {ms:.2f} ms a "
+        f"pair ({smi})")
+    if not err <= 1e-3 or agree < 0.99:
+        fail("superglue-official disagrees with its plain path")
+    return launches, ms
+
+
+def run_official_phase(smi):
+    """Phase 19: the official-checkpoint path with seeded checkpoints."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gluefactory_tpu_torch.eval.export_helper import match_pair_with_weights
+    from gluefactory_tpu_torch.scripts import convert_weights
+
+    t_phase = time.perf_counter()
+    work = ROOT / "outputs" / "chip_smoke_official"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        kinds = {"superpoint": "superpoint", "lightglue": "lightglue",
+                 "lightglue_128": "lightglue", "superglue": "superglue"}
+        for name, sd in official_states(19).items():
+            torch.save(sd, str(work / f"{name}.pth"))
+        # the command line once as a program, then through its main
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "gluefactory_tpu_torch.scripts.convert_weights",
+                        "--kind", "superpoint", "--input", str(work / "superpoint.pth"),
+                        "--output", str(work / "superpoint.npz")],
+                       check=True, cwd=ROOT, timeout=300)
+        for name, kind in list(kinds.items())[1:]:
+            convert_weights.main(["--kind", kind, "--input", str(work / f"{name}.pth"),
+                                  "--output", str(work / f"{name}.npz")])
+        log(f"[official19] converted 4 seeded checkpoints in {time.perf_counter() - t0:.1f} s")
+
+        pipe = official_pipeline("superpoint+lightglue-official", 2048, work / "lightglue.npz",
+                                 work / "superpoint.npz")
+        sp_ms = check_official_lightglue("superpoint+lightglue-official", pipe, 1200, 1600,
+                                         seed=19, label="official19 megadepth", smi=smi)
+        del pipe
+        pipe = official_pipeline("aliked+lightglue-official", 1024, work / "lightglue_128.npz")
+        al_ms = check_official_lightglue("aliked+lightglue-official", pipe, 480, 640, seed=20,
+                                         label="official19 aliked", smi=smi)
+        del pipe
+        pipe = official_pipeline("superpoint+superglue-official", 1024, work / "superglue.npz",
+                                 work / "superpoint.npz")
+        k7a, sg_ms = check_official_superglue(pipe, 480, 640, seed=21, smi=smi)
+        del pipe
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        res = match_pair_with_weights(work / "superpoint.pth", work / "lightglue.pth",
+                                      work / "pair", device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"[official19] match_pair_with_weights (seeded checkpoints, 480x640 textured pair, "
+            f"2048 keypoints max): {res['num_matches']} matches, precision@3px "
+            f"{res['prec@3px']:.4f}, {len(res['keypoints0'])} keypoints; launches self "
+            f"{counts[0]}, cross {counts[1]}, assignment {counts[2]}")
+        if counts != [9, 9, 1] or not np.isfinite(res["keypoints0"]).all():
+            fail("match_pair_with_weights: wrong launches or non-finite keypoints")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[official19] phase {time.perf_counter() - t_phase:.1f} s; ms a pair: "
+        f"superpoint+lightglue-official 1200x1600 / 2048 {sp_ms:.2f}, aliked+lightglue-official "
+        f"480x640 / 1024 {al_ms:.2f}, superpoint+superglue-official 480x640 / 1024 {sg_ms:.2f} "
+        f"(K7a {k7a}); {smi}")
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     global TRAIN_B
@@ -6099,6 +6365,10 @@ def main() -> int:
     log(f"[time] phase 18 starts at {time.perf_counter() - t_start:.1f} s")
     # 18. the multipoint remainder, the exports and the figures
     run_figures_phase()
+    torch.cuda.empty_cache()
+    log(f"[time] phase 19 starts at {time.perf_counter() - t_start:.1f} s")
+    # 19. the official-checkpoint path: converters, *-official configurations
+    run_official_phase(smi)
     torch.cuda.empty_cache()
     mp_att = {k["key"]: k["ms"] * per_step[k["key"]] for k in kernels
               if k.get("key") in ("K5 bf16", "K6b bf16", "K7b self bf16", "K7b cross bf16")}

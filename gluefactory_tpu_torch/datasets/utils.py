@@ -17,7 +17,9 @@ its footprint, weighted by the overlap of pixel areas, which averages when
 shrinking and interpolates between the two nearest pixels when enlarging.
 The weights are one matrix an axis and the resize two products (float32).
 "nearest" is OpenCV's INTER_NEAREST: source index floor(x / (dst / src)) in
-double precision, clamped to the last pixel.
+double precision, clamped to the last pixel. "linear" and "cubic" are
+INTER_LINEAR and INTER_CUBIC through `image_ops` (linear bit for bit, cubic
+within a few float32 ulps).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.config import Config, merge
+from . import image_ops
 from .image_codecs import JPEG_MAGIC, PNG_MAGIC, decode_jpeg, decode_png, jpeg_size, png_size
 
 _MAGIC = {b"GIF8": "GIF", b"II*\x00": "TIFF", b"MM\x00*": "TIFF", b"BM": "BMP", b"RIFF": "WebP"}
@@ -158,16 +161,24 @@ def nearest_index(n_in: int, n_out: int) -> np.ndarray:
 def resize_image(img: np.ndarray, size, fn: str = "max", interp: str = "area"):
     """Resize so that fn(h, w) == size (an int) keeping the aspect, or to
     size = (w, h); returns (img (H', W'[, C]) float32, scales = new / old
-    (x, y)). "area" keeps a channel axis (adds one to a 2-D image, as the
-    weights do); "nearest" keeps the input's dims and dtype, as cv2 does."""
-    if interp not in ("area", "nearest"):
-        raise ValueError(f"interpolation {interp!r} is not ported (area and nearest)")
+    (x, y)). "area", "linear" and "cubic" keep a channel axis (add one to a
+    2-D image, as the JAX function does); "nearest" keeps the input's dims
+    and dtype, as cv2 does. "linear" is `image_ops.resize_linear` (cv2's
+    bit for bit), "cubic" `image_ops.resize_cubic`, a channel at a time."""
+    if interp not in ("area", "nearest", "linear", "cubic"):
+        raise ValueError(f"unknown interpolation {interp!r} (area, nearest, linear, cubic)")
     h, w = img.shape[:2]
     h_new, w_new = resized_shape(h, w, size, fn)
     scales = np.array([w_new / w, h_new / h], np.float32)
     if interp == "nearest":
         out = np.asarray(img)[nearest_index(h, h_new)][:, nearest_index(w, w_new)]
         return np.ascontiguousarray(out), scales
+    if interp in ("linear", "cubic"):
+        fn_ = image_ops.resize_linear if interp == "linear" else image_ops.resize_cubic
+        x = np.asarray(img, np.float32)
+        x = x[..., None] if x.ndim == 2 else x
+        out = np.stack([fn_(x[..., c], (w_new, h_new)) for c in range(x.shape[-1])], -1)
+        return out, scales
     x = torch.from_numpy(np.ascontiguousarray(img, np.float32))
     if x.ndim == 2:
         x = x[..., None]

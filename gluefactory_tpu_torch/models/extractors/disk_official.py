@@ -15,6 +15,16 @@ gluefactory_tpu/models/extractors/disk_official.py; kornia's
     the lower index); descriptors read at the integer keypoints, unit
     length; keypoints +0.5.
 
+Open question (ROADMAP Queue 3a): whether this NMS is kornia's. kornia's
+`heatmap_to_keypoints` may keep every pixel that equals the maximum of its
+sliding `window_size` window (a stride-1 max pool), which keeps more than
+one keypoint a cell; kornia is no dependency of the project, so this is
+unverified.
+The port copies the JAX package (`disk_official.py:150`: one argmax a 5 x 5
+cell). Official weights load now (`scripts/convert_weights.py --kind
+disk`), so the two rules can be told apart on real images once those
+weights are in the repository.
+
 Parameters keep the flax tree's names and layout (`down_0_conv_w` HWIO,
 `down_0_conv_b`, `down_1_prelu`, ...). Images are (B, H, W, C) in [0, 1];
 convolutions run in fp32 (`no_tf32`).

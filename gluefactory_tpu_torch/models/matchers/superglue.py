@@ -12,7 +12,9 @@ The attention runs on the per-head (B, H, N, Dh) layout through
 a layer pair: two self, two cross), the plain version on the CPU. Everything
 else is torch calls in fp32. `weights.superglue_from_flax` maps the JAX
 model's parameter tree (or a tree of its gradients) onto this module's
-state dict.
+state dict, and `conf.weights` loads an `.npz` of such a tree, strictly:
+`scripts/convert_weights.py` writes one from the official weights, whose
+BatchNorms it folds into the dense layers, so it needs `ln: False`.
 
 With `is_training` the forward is differentiable and the parameters train:
 the attention's backward is the backward kernel on the per-head layout (one
@@ -142,6 +144,7 @@ class SuperGlue(BaseModel):
         "name": "superglue",
         "input_dim": 256,
         "descriptor_dim": 256,
+        "weights": None,  # a convert_weights .npz of the official weights (needs ln: False)
         "keypoint_encoder": [32, 64, 128, 256],
         "GNN_layers": 9,  # pairs of (self, cross)
         "num_heads": 4,
@@ -171,6 +174,10 @@ class SuperGlue(BaseModel):
                     mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen)
                                      * mod.in_features**-0.5)
                     mod.bias.zero_()
+        if conf.weights:
+            from ...weights import load_superglue_npz
+
+            self.load_state_dict(load_superglue_npz(conf.weights))
         self.requires_grad_(bool(conf.is_training))
         self.to(self.device)
 

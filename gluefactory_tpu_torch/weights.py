@@ -39,8 +39,10 @@ port can be handed to the JAX package.
 the port's SuperGlue state dict: `Dense_*` kernels (in, out) transposed to
 `nn.Linear` weights (out, in), LayerNorm scale / bias, `bin_score`.
 
-`load_npz(path)` maps a flat `.npz` of a flax tree (the layout of the JAX
-package's `scripts/convert_weights.py`, an extractor's `conf.weights`);
+`load_npz(path)` maps a flat `.npz` of a flax tree (the layout that
+`scripts/convert_weights.py` writes, in either package: an extractor's or
+`lightglue_pretrained`'s `conf.weights`); `load_superglue_npz(path)` one of
+the SuperGlue tree (SuperGlue's `conf.weights`);
 `load_hermetic(path)` reads the committed flat npz artifact
 (counterpart of gluefactory_tpu/models/matchers/lightglue_pretrained.py:20-67).
 """
@@ -196,6 +198,13 @@ def load_npz(path: str | Path) -> dict:
         return params_from_jax({k: flat[k] for k in flat.files})
 
 
+def load_superglue_npz(path: str | Path) -> dict:
+    """Port SuperGlue state dict of a flat `.npz` of the SuperGlue tree, as
+    `convert_superglue` writes one."""
+    with np.load(str(path)) as flat:
+        return superglue_from_flax({k: flat[k] for k in flat.files})
+
+
 def load_hermetic(path: str | Path = HERMETIC, device: Any = "cuda") -> dict:
     """The committed SuperPoint-open + LightGlue weights as a two-view
     pipeline state dict on `device`."""
@@ -204,4 +213,4 @@ def load_hermetic(path: str | Path = HERMETIC, device: Any = "cuda") -> dict:
 
 
 __all__ = ["HERMETIC", "params_from_jax", "params_to_jax", "port_key", "superglue_from_flax",
-           "load_npz", "load_hermetic"]
+           "load_npz", "load_superglue_npz", "load_hermetic"]

@@ -325,6 +325,26 @@ def _digest(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
+@pytest.mark.parametrize("interp", ["linear", "cubic"])
+@pytest.mark.parametrize("shape,size", [((480, 640, 1), 320), ((120, 160, 3), (64, 48)),
+                                        ((97, 131), 55), ((30, 40, 1), (120, 160)),
+                                        ((1200, 1600, 1), 1200)])
+def test_linear_and_cubic_resize_against_cv2(interp, shape, size):
+    """INTER_LINEAR to cv2's digest; INTER_CUBIC within 4 float32 ulps of 1
+    (OpenCV 5's order of float32 operations in its cubic pass is not
+    repeated); shapes and scales as the JAX function's."""
+    img = np.random.RandomState(9).rand(*shape).astype(np.float32)
+    out, scales = resize_image(img, size, interp=interp)
+    ref, ref_scales = jdu.resize_image(img, size, interp=interp)
+    assert out.shape == ref.shape and out.dtype == np.float32
+    np.testing.assert_array_equal(scales, ref_scales)
+    if interp == "linear":
+        assert _digest(out) == _digest(ref)
+    else:
+        diff = np.abs(out - ref)
+        assert diff.max() <= 4 * 2.0**-23 and diff.mean() < 1e-7, (diff.max(), diff.mean())
+
+
 def test_committed_corpus_decodes_to_its_manifest():
     manifest = json.loads((CORPUS / "manifest.json").read_text())
     assert sum(p.stat().st_size for p in CORPUS.iterdir()) <= 1.5 * 2**20

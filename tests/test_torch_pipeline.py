@@ -25,6 +25,7 @@ from gluefactory_tpu.models import get_model as jax_model
 from gluefactory_tpu.models.matchers.lightglue_pretrained import load_npz_params
 from gluefactory_tpu_torch.estimators.homography.torch_ransac import TorchRansacHomography
 from gluefactory_tpu_torch.eval.MP import MPPipeline
+from gluefactory_tpu_torch.eval.export_helper import match_pair_with_weights
 from gluefactory_tpu_torch.eval.hpatches import HPatchesPipeline
 from gluefactory_tpu_torch.eval.synthetic import SyntheticHomographyPipeline
 from gluefactory_tpu_torch.geometry.wrappers import Camera
@@ -97,6 +98,8 @@ def test_pipeline_matches_jax_with_hermetic_weights():
     lambda: LoopClosingSlam(Camera.from_params(480, 360, 420.0, 420.0, 240.0, 180.0)),
     lambda: get_model("gluefactory_tpu_torch.multipoint.models.homography_net")(),
     lambda: export_local_features("homographies", "sp"),
+    lambda: get_model("lightglue_pretrained")({"weights": "lightglue.npz"}),
+    lambda: match_pair_with_weights("superpoint_v1.pth", "superpoint_lightglue.pth", "work"),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -128,7 +131,8 @@ def test_port_imports_no_jax():
             "megadepth.py", "cache_loader.py", "triplet_pipeline.py",
             "export_megadepth.py", "ba.py", "pose_graph.py", "slam.py", "triangulation.py",
             "metrics.py", "pair_matching.py", "slam_scale_run.py", "export_predictions.py",
-            "export_local_features.py", "viz2d.py", "visualize_batch.py"} <= names
+            "export_local_features.py", "viz2d.py", "visualize_batch.py", "convert_weights.py",
+            "lightglue_pretrained.py"} <= names
     multipoint = {p.relative_to(ROOT / "gluefactory_tpu_torch" / "multipoint").as_posix()
                   for p in files if "multipoint" in p.parts}
     assert {"datasets/image_pair_dataset.py", "models/multipoint.py", "models/xpoint.py",
